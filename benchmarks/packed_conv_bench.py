@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """A/B: VDSR interior stack direct vs lane-packed (ops/packed_conv.py).
 
-The ch=32 stack uses 32 of the MXU's 128 output lanes; packing p=4
-output columns into lanes trades (p+kw-1)/kw = 2x zero-fill MACs for a
-4x lane gain -- predicted net 2x where the stack is MXU-bound (PERF.md
-"VDSR roofline": the direct stack runs at 77% of its 32-lane ceiling).
+The ch=32 stack has 32 output channels; packing p=4 output columns into
+the channel dimension trades (p+kw-1)/kw = 2x zero-fill MACs for a 4x
+wider output -- whether that pays on the GPU is what this measures
+(ROADMAP D3).
 
-Interleaved rounds in one process (relay variance, DESIGN.md §6):
+Interleaved rounds in one process, so drift hits every variant alike:
 
   python benchmarks/packed_conv_bench.py --size 2048 --depth 16
 """
@@ -61,7 +61,6 @@ def main() -> None:
 
     def sync(x):
         jax.block_until_ready(x)
-        np.asarray(x.ravel()[0])
 
     for key, fn in fns.items():
         out = fn(planes[0])

@@ -7,7 +7,7 @@ exact (golden-gated) tier: max |diff|, PSNR, SSIM.  This is the number the
 headline benchmark's ">=0.99 SSIM" claim rests on, measured rather than
 asserted.
 
-Run on the real chip:  python benchmarks/tier_quality.py
+Run on the GPU:  python benchmarks/tier_quality.py
 (also works on CPU -- the Pallas kernel runs in interpreter mode there).
 """
 

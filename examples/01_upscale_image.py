@@ -1,4 +1,4 @@
-"""Still-image upscaling: the reference workflow, TPU-native.
+"""Still-image upscaling: the reference workflow, in JAX.
 
 Usage: python examples/01_upscale_image.py [image.png] [scale]
 """
@@ -19,7 +19,7 @@ scale = float(sys.argv[2]) if len(sys.argv) > 2 else 2.0
 img = load_image(path)
 print(f"input {img.shape[1]}x{img.shape[0]}, scale x{scale}")
 
-# default: bicubic + SRCNN on the Y channel (exact f32 on TPU)
+# default: bicubic + SRCNN on the Y channel (the exact f32 tier)
 out, conv_map = lt.upscale(img, scale, return_conv_map=True)
 save_png("out_srcnn.png", out)
 save_png("out_convmap.png", conv_map)
@@ -34,7 +34,7 @@ if scale > 2:
     stepped = lt.upscale(img, scale, lt.SRCNNConfig(step_scale=True))
     save_png("out_stepscale.png", stepped)
 
-# bf16 throughput mode (~1.5x faster on TPU, SSIM >= 0.999)
+# bf16 throughput tier (SSIM >= 0.99 vs the exact tier)
 fast = lt.upscale(img, scale, lt.SRCNNConfig(compute_dtype="bfloat16"))
 diff = np.abs(out.astype(int) - fast.astype(int)).max()
 print(f"bf16 mode max u8 diff vs exact: {diff}")

@@ -1,25 +1,21 @@
 """The srcnn compute-tier ladder: one flag, four speed/exactness points.
 
-Every tier runs the same fused Pallas kernel on TPU; only the MXU GEMM
-strategy changes (kernels/fused_conv._dot, measured story in PERF.md):
+The three float tiers run the same fused kernel; only the dots change
+(kernels/fused_conv._mm, measured story in PERF.md):
 
-  float32        exact -- Mosaic's 3-pass f32 algorithm; this is the tier
-                 the golden gate holds to <=1 u8 LSB vs the reference
-                 binary (the library default).
-  bfloat16       split-bf16x2 -- activations split hi+lo into TWO native
-                 MXU passes, bf16 weights; only weight rounding remains.
-  bfloat16_fast  ONE MXU pass per conv -- adds activation rounding;
-                 the throughput champion (806 MP/s device at 2048^2-out,
-                 ~3.3x the exact tier).
-  int8           quantized draft -- measured NOT faster than bfloat16_fast
-                 on this stack (PERF.md "int8 tier"); kept as the measured
-                 answer to "wouldn't int8 be faster?".
+  float32        exact -- f32-accurate dots; this is the tier the golden
+                 gate holds to <=1 u8 LSB vs the reference binary (the
+                 library default).
+  bfloat16       activations split hi+lo into TWO bf16 dots against bf16
+                 weights; only weight rounding remains.
+  bfloat16_fast  ONE bf16 dot per conv -- adds activation rounding.
+  int8           quantized draft -- XLA int8 convs, no fused kernel.
 
 ``use_pallas=True`` is set explicitly so the ladder is demonstrated on
 every backend: on CPU the kernel runs in interpreter mode (slow but
-numerically identical -- without the flag, CPU would take the XLA path
-where the two bf16 tiers are the same computation).  Run on a TPU host
-for the speed column to mean something.
+numerically the same -- without the flag, CPU would take the XLA path
+where the two bf16 tiers are the same computation).  Run on the GPU for
+the speed column to mean something.
 """
 
 import os

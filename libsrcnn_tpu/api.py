@@ -3,7 +3,7 @@
 The reference exposes exactly two C functions (`libsrcnn.h:46-54`):
 ``ConfigureFilterSRCNN(filter, stepscale)`` writing process globals, and
 ``ProcessSRCNN(buf, w, h, d, multiply, ...)`` returning int codes.  The
-TPU-native API is :func:`upscale` (pure, config-in/arrays-out); the shims
+native API is :func:`upscale` (pure, config-in/arrays-out); the shims
 :func:`configure_filter_srcnn` / :func:`process_srcnn` reproduce the
 reference's stateful surface and error codes for drop-in use.
 """
@@ -131,7 +131,7 @@ def _upscale_flip_ensemble(img, scale, config, params):
     pipeline, outputs unflipped and averaged in f32 before the u8 cast.
 
     The non-step path batches all 4 variants into ONE vmapped device
-    dispatch (`serve._ensemble_pass` -- the MXU sees a batch, not 4
+    dispatch (`serve._ensemble_pass` -- the device sees a batch, not 4
     calls, and the flip/unflip bookkeeping lives there);
     step-scale chains go through the scalar path per variant.  Flips
     only (no transposes): 90-degree rotations swap H/W and would need a
@@ -180,7 +180,7 @@ def debug_intermediates(
     params: dict | None = None,
 ) -> dict:
     """Return every intermediate plane of a single pass as numpy arrays --
-    the TPU analog of the reference's DEBUG PNG dumps
+    the analog of the reference's DEBUG PNG dumps
     (`libsrcnn.cpp:731-850`).  Keys: resized_Y/Cb/Cr(/A), conv1_0..63,
     conv2_0..31, conv3."""
     img = _as_u8_image(image)

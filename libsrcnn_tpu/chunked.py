@@ -3,8 +3,8 @@
 The reference is O(W·H) single-node and simply dies on frames whose float
 planes exceed RAM (SURVEY.md section 5's "long-context analog").  The
 framework's multi-chip answer is :func:`libsrcnn_tpu.parallel.upscale_tiled`
-(spatial shards + ICI halo exchange); THIS module is the single-device
-leg of the same size-scaling story: the image never exists on the chip
+(spatial shards + halo exchange); THIS module is the single-device
+leg of the same size-scaling story: the image never exists on the device
 (or in host f32) at once.  The host streams horizontal output bands --
 u8 source rows up, u8 result rows back -- and every intermediate lives
 only at band height, so peak device memory is O(band) instead of O(image).
@@ -102,7 +102,7 @@ def _apply_band_axis0(plane, idx, w):
 
 def _xla_halo_forward(params, ext, flags, bh: int, dst_w: int):
     """Exact-tier srcnn conv stack on a pre-haloed band ([bh+12, dst_w+12]
-    -> [bh, dst_w]): XLA twin of the fused kernel's pad_mode="halo" body.
+    -> [bh, dst_w]): XLA twin of the fused kernel's pad_mode="halo" call.
     The conv2-output ring is replaced by the edge value only where the
     band border is a TRUE image edge (flags [top, bottom]; columns are
     always true edges here -- bands span the full width)."""
@@ -125,7 +125,7 @@ def _xla_halo_forward(params, ext, flags, bh: int, dst_w: int):
 @functools.lru_cache(maxsize=64)
 def _compiled_band(d: int, s_rows: int, src_w: int, bh: int, dst_w: int,
                    filter_type: int, use_pallas: bool, precision,
-                   interpret: bool, model: str = "srcnn", spec=None,
+                   model: str = "srcnn", spec=None,
                    halo: int = CONV_HALO):
     """One jitted band program; interior bands of equal height share it."""
     y_filter = FilterType(filter_type)
@@ -177,17 +177,8 @@ def _compiled_band(d: int, s_rows: int, src_w: int, bh: int, dst_w: int,
         elif use_pallas:
             from .kernels import fused_conv
 
-            w1 = params["w1"].reshape(81, 64).astype(jnp.float32)
-            b1 = params["b1"].astype(jnp.float32)
-            w2 = params["w2"].reshape(64, 32).astype(jnp.float32)
-            b2 = params["b2"].astype(jnp.float32)
-            w3 = (params["w3"][:, :, :, 0].transpose(1, 0, 2)
-                  .reshape(25, 32).astype(jnp.float32))
-            b3 = params["b3"].reshape(1).astype(jnp.float32)
-            y_sr = fused_conv._fused(
-                yb, w1, b1, w2, b2, w3, b3, flags,
-                th=min(fused_conv.tile_h_for(precision), bh),
-                interpret=interpret, pad_mode="halo", precision=precision)
+            y_sr = fused_conv._fused(yb, params, flags, pad_mode="halo",
+                                     tier=precision)
         else:
             y_sr = _xla_halo_forward(params, yb, flags, bh, dst_w)
 
@@ -342,21 +333,17 @@ def _resolve_chunked(cfg: SRCNNConfig, multiply: float,
 
     if cfg.model == "srcnn":
         _pipeline.validate_compute_dtype(cfg)
-        use_pallas = _pipeline.resolve_pallas(cfg.use_pallas)
-        if cfg.compute_dtype == "float32":
-            precision = jax.lax.Precision.HIGHEST
-        elif cfg.compute_dtype in ("bfloat16", "bfloat16_fast") and use_pallas:
-            from .kernels import fused_conv
-
-            precision = (jax.lax.Precision.DEFAULT
-                         if cfg.compute_dtype == "bfloat16"
-                         else fused_conv.BF16X1)
-        else:
+        use_pallas = _pipeline.resolve_pallas(cfg.use_pallas,
+                                              cfg.compute_dtype)
+        if not (cfg.compute_dtype == "float32"
+                or (use_pallas and cfg.compute_dtype != "int8")):
             raise ValueError(
                 f"the chunked path's srcnn conv tiers are float32 (XLA or "
-                f"Pallas body) and bfloat16/bfloat16_fast (Pallas body "
-                f"only) -- got compute_dtype={cfg.compute_dtype!r} with "
-                f"use_pallas={cfg.use_pallas!r}")
+                f"fused-kernel body) and bfloat16/bfloat16_fast (fused "
+                f"kernel only) -- got compute_dtype={cfg.compute_dtype!r} "
+                f"with use_pallas={cfg.use_pallas!r}")
+        # the srcnn band body takes the tier name; the XLA body is exact
+        precision = cfg.compute_dtype
         spec, halo = None, CONV_HALO
     elif cfg.model in _pipeline.HR_FAMILIES:
         # XLA direct convs at the family tier (float32 exact / bfloat16)
@@ -398,8 +385,8 @@ def upscale_chunked(image, multiply: float, cfg: SRCNNConfig = DEFAULT_CONFIG,
     (the fetch is the only blocking call in the loop).  1 = fully
     serial; the default 2 double-buffers.
 
-    Models: srcnn (fused Pallas / XLA; float32 + the two bf16 tiers --
-    int8 is one-shot only), the HR families
+    Models: srcnn (fused kernel / XLA; float32 + the two bf16 tiers, which
+    need the fused kernel -- int8 is one-shot only), the HR families
     (vdsr/srcnn955 -- direct XLA convs, float32/bfloat16 tiers, halo
     derived from the spec), and the LR families (fsrcnn/espcn -- bands
     cut on whole LR rows, crop-after-halo-extend, exact-scale contract
@@ -464,12 +451,10 @@ def upscale_chunked(image, multiply: float, cfg: SRCNNConfig = DEFAULT_CONFIG,
             plans.append(_bands_from_edges(m_edges, halo, dst_h, gy_idx,
                                            gc_idx))
         s_rows = max(smax - smin for plan in plans for *_, smin, smax in plan)
-        interpret = jax.default_backend() == "cpu"
-
         def dispatch(img_v, band):
             return _dispatch_band(img_v, band, params, gy_idx, gy_w,
                                   gc_idx, gc_w, s_rows, dst_h, d, w, dst_w,
-                                  cfg, use_pallas, precision, interpret,
+                                  cfg, use_pallas, precision,
                                   spec, halo)
 
     if cfg.self_ensemble:
@@ -496,7 +481,7 @@ def upscale_chunked(image, multiply: float, cfg: SRCNNConfig = DEFAULT_CONFIG,
 def _dispatch_band(image, band, params, gy_idx, gy_w, gc_idx, gc_w,
                    s_rows: int, dst_h: int, d: int, src_w: int, dst_w: int,
                    cfg: SRCNNConfig, use_pallas: bool, precision,
-                   interpret: bool, spec, halo: int):
+                   spec, halo: int):
     """Slice one band's source rows, bind its runtime tables, and launch
     the compiled band program (async; returns device arrays)."""
     r0, r1, rows_y, rows_c, smin, smax = band
@@ -511,7 +496,7 @@ def _dispatch_band(image, band, params, gy_idx, gy_w, gc_idx, gc_w,
     vc_w = jnp.asarray(gc_w[rows_c])
     flags = jnp.asarray([r0 == 0, r1 == dst_h, True, True], jnp.int32)
     fn = _compiled_band(d, s_rows, src_w, bh, dst_w, int(cfg.filter),
-                        use_pallas, precision, interpret, cfg.model, spec,
+                        use_pallas, precision, cfg.model, spec,
                         halo)
     return fn(jnp.asarray(src), params, vy_idx, vy_w, vc_idx, vc_w, flags)
 

@@ -11,8 +11,8 @@ The reference CLI (`test.cpp:290-448,513-531`):
 * output auto-naming: ``<input>_resized.png`` and ``<input>_convolution.png``
   (`test.cpp:387-445`)
 
-TPU-native extras: ``--filter`` also accepts names, ``--pallas`` routes the
-conv stack through the fused Pallas kernels, ``--model=fsrcnn`` selects the
+Extras: ``--filter`` also accepts names, ``--pallas`` / ``--no-pallas``
+force the fused srcnn kernel on or off (default: auto), ``--model=fsrcnn`` selects the
 FSRCNN family (learned-deconv upscale, integer scale), ``--debug-dir=DIR``
 dumps intermediate planes like the reference's DEBUG builds, ``--repeat=N``
 for quick timing loops.
@@ -51,7 +51,7 @@ def parse_args(argv: list[str]):
     filter_type = FilterType.BICUBIC
     step = False
     ensemble = False
-    use_pallas = None  # auto: pallas on TPU, XLA elsewhere
+    use_pallas = None  # auto: pipeline.resolve_pallas
     model = "srcnn"
     dtype = "float32"
     repeat = 1

@@ -2,7 +2,7 @@
 
 The reference keeps two mutable process globals set via
 ``ConfigureFilterSRCNN`` (`libsrcnn.cpp:91-92,930-941`) which are not
-thread-safe.  The TPU framework replaces them with this frozen config object
+thread-safe.  This framework replaces them with this frozen config object
 passed per call; a thin compat shim in :mod:`libsrcnn_tpu.api` reproduces the
 global-state API for drop-in use.
 """
@@ -44,32 +44,33 @@ class SRCNNConfig:
         derived, see :func:`chroma_filter`).
       step_scale: decompose scale factors > 2 into chained x2 passes with a
         u8 round-trip between passes, mirroring `libsrcnn.cpp:980-1061`.
-      compute_dtype: dtype for the conv stack on device.  ``float32`` matches
-        the reference closely; ``bfloat16`` trades ~1 u8 LSB of precision for
-        MXU throughput (split-bf16x2 in the fused srcnn kernel -- exact
-        activations, bf16-rounded weights; for the learned model families
-        it selects single-pass bf16 convs -- 1.9-2.8x, quality deltas in
-        PERF.md); ``bfloat16_fast`` (srcnn model only) drops the split's
-        lo-pass for ONE native MXU pass per GEMM -- the fastest tier,
-        adding the activations' bf16 rounding (~2 u8 max vs the split
-        tier, SSIM vs exact still >=0.999, PERF.md round-3 table);
-        ``int8`` (srcnn model only) is the quantized draft tier -- the
-        v5e MXU runs int8 at 2x the bf16 rate; quality vs the exact path
-        is ~40 dB PSNR (see PERF.md and models/srcnn_int8.py).
+      compute_dtype: the conv stack's tier on device.  ``float32`` matches
+        the reference within 1 u8 LSB (the golden gate); the srcnn fused
+        kernel runs it as f32-accurate six-pass bf16 tensor-core dots, the
+        XLA path as f32 convs at ``HIGHEST``.  ``bfloat16``: for srcnn,
+        bf16-rounded weights against hi + lo bf16 halves of the f32
+        activations (two bf16 dots, f32 accumulation) in the fused kernel,
+        or bf16-operand convs on the XLA path; for the learned families,
+        convs at ``Precision.DEFAULT`` (TF32 on the H100).
+        ``bfloat16_fast`` (srcnn only): one bf16 dot per conv in the fused
+        kernel, adding the activations' bf16 rounding (SSIM vs float32
+        >=0.99); the XLA path runs it as ``bfloat16``.  ``int8`` (srcnn
+        only) is the quantized draft tier, XLA int8 convs on every path;
+        quality vs the exact path is ~40 dB PSNR (models/srcnn_int8.py).
       self_ensemble: flip self-ensemble (Timofte et al., CVPR 2016
         enhanced-prediction trick): run the pipeline on the 4 flip
         variants of the input in ONE vmapped device dispatch, unflip and
         average the outputs in f32 before the u8 cast.  Trades 4x compute
         for a free quality bump on every model family (measured in
-        EVAL.md) -- the TPU-idiomatic trade, since the variants batch
-        onto the MXU.  Off by default; the golden parity gate applies
+        EVAL.md) -- the variants run as one batch.  Off by default; the golden parity gate applies
         only to the non-ensemble path.
       emit_conv_map: also return the raw Y-channel conv3 output as u8
         (`libsrcnn.cpp:889-915`).
-      use_pallas: route the conv stack through the fused Pallas kernel.
-        ``None`` (default) auto-selects: Pallas on TPU (where it is both
-        ~2x faster and MORE accurate than XLA's bf16-precision convs),
-        XLA elsewhere.
+      use_pallas: route the srcnn conv stack through the fused kernel
+        (:mod:`libsrcnn_tpu.kernels.fused_conv`).  ``None`` (default)
+        auto-selects (:func:`libsrcnn_tpu.pipeline.resolve_pallas`): the
+        kernel on the GPU for the tiers where it measured faster end to
+        end, XLA elsewhere; on the CPU an explicit True interprets it.
       model: which model family upscales the Y channel.  ``"srcnn"``
         (default) is the reference's 9-1-5 stack on the pre-interpolated
         plane.  ``"fsrcnn"`` (features at LOW resolution, learned deconv
@@ -81,13 +82,12 @@ class SRCNNConfig:
         tools/train_vdsr.py) ships one scale-agnostic checkpoint serving
         any factor, including fractional and step-scale chains -- the
         zoo's strongest quality tier (EVAL.md).
-      lane_pack: run the learned families' convs in the MXU-lane-packed
+      lane_pack: run the learned families' convs in the lane-packed
         formulation (:mod:`libsrcnn_tpu.ops.packed_conv`): p adjacent
-        output columns share the lane dimension, lifting the 128-lane
-        ceiling that narrow stacks (vdsr ch=32, fsrcnn s=12, the r^2
-        sub-pixel heads) otherwise waste.  Same f32 MACs in a different
-        reduction order.  ``None`` (default) auto-selects: packed on TPU
-        for the family models, direct elsewhere; ignored by the srcnn
+        output columns share the channel dimension, widening narrow
+        stacks (vdsr ch=32, fsrcnn s=12, the r^2 sub-pixel heads).  Same
+        f32 MACs in a different reduction order.  ``None`` (default) and
+        False run the direct convs; True opts in.  Ignored by the srcnn
         model (its fused kernel owns the conv stack, and the golden gate
         pins its reduction order).
     """

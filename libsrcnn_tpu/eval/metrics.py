@@ -1,7 +1,7 @@
 """Image quality metrics (numpy, host-side).
 
 The reference ships no metrics at all (SURVEY.md section 4) -- its
-verification is visual diff against `Pictures/` goldens.  The TPU framework
+verification is visual diff against `Pictures/` goldens.  This framework
 quantifies parity: PSNR and SSIM (Wang et al. 2004, gaussian-windowed) on
 u8 images, used by the regression suite (>=0.99 SSIM vs the reference
 binary per BASELINE.json) and the eval CLI.

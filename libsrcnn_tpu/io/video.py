@@ -175,7 +175,7 @@ def upscale_video(src: str, dst: str, scale: float = 2.0,
 
         if batch:
             # load once; per-batch loads would re-upload the weights
-            # through the relay on every clip
+            # on every clip
             params = pipeline.load_model_params(config, scale)
             while True:
                 clip = list(islice(source, batch))

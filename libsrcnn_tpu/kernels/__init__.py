@@ -1,1 +1,1 @@
-"""Hand-tuned Pallas TPU kernels for the hot path."""
+"""Hand-written GPU kernels for the hot path (Pallas, Triton route)."""

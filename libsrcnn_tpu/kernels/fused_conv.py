@@ -1,41 +1,39 @@
-"""Fully-fused SRCNN 9-1-5 forward as one Pallas TPU kernel.
+"""SRCNN 9-1-5 forward as one Pallas (Triton) kernel plus one XLA fusion.
 
-The reference's own memory-saving fusion idea (`Convolution99x11`,
-`libsrcnn.cpp:531-626` -- dead code with a border bug, SURVEY.md section
-2.13) done right and extended through conv3: one kernel computes
-conv1(9x9) -> ReLU -> conv2(1x1) -> ReLU -> conv3(5x5) -> clamp per output
-tile, so the 64-plane conv1 and 32-plane conv2 intermediates NEVER touch
-HBM.  The unfused XLA path moves ~3.2 GB of intermediates per 2048^2 output
-and is HBM-bound on this chip; the fused kernel streams the Y plane once.
+The unfused XLA path (:func:`libsrcnn_tpu.models.srcnn.forward_y`) writes
+the 64-plane conv1 and 32-plane conv2 activations to device memory and
+reads them back.  Here one kernel takes every pixel from the Y plane to
+conv3's per-tap products without storing either activation:
 
-Mosaic imposes hard layout rules (VMEM slices must be (8,128)-tile aligned,
-shape casts across the lane dim are unsupported), so the kernel is built
-exclusively from ops that are native on TPU:
+* each program owns a ``tile`` of pixels of the conv2 plane, which is the
+  output plane plus the 2-px ring conv3 reads;
+* conv1 gathers each pixel's 9x9 taps straight from the Y plane (a
+  2048^2 f32 plane is 16 MB and stays in L2) and runs as tensor-core dots,
+  ``[P, 64] x [64, 64]`` and ``[P, 16] x [16, 64]`` for taps 0..79 plus a
+  rank-1 update for tap 80, so no tap is padded; bias, ReLU;
+* conv2 is ``[P, 64] x [64, 32]``; bias, ReLU;
+* conv3's tap products ``G = c2 x W3`` (``[P, 32] x [32, 32]``, 25 live
+  columns) are written out as 25 planes, 100 B per pixel against the
+  ~768 B per pixel of the unfused path's activation traffic.
 
-* Overlapping input windows come straight from the padded plane via
-  `pl.Element` block dims (element-granular offsets), so there is NO
-  pre-tiled copy of the input in HBM -- the v1 kernel's XLA window-stack
-  prepass cost 4.7 ms at 2048^2, ~20% of the kernel time.  Window rows
-  ride the MAJOR dim (sublane dim is 1), making each 9x9 tap a
-  major-offset plus a <=8 lane rotate.
-* im2col: 81 tap slices stored into the sublane dim of q [CH, 81, CW=128]
-  (measured: only ~1.2 ms at 2048^2 -- NOT the bottleneck).
-* conv1: batched-over-majors MXU GEMMs contracting the 81 sublanes with
-  the [81, 64] kernel -> h1 [CH, CW, 64]; bias, ReLU.
-* conv2: batched [CW, 64] x [64, 32] -> c2 [CH, CW, 32]; bias, ReLU.
-* conv3 rides the MXU too (the v1 kernel's 25 VPU FMAs + sublane reduce
-  cost 7.1 ms at 2048^2): one batched GEMM contracts the 32 channels with
-  all 25 tap weight vectors at once -> G [CH, 25, CW] (taps ordered
-  k=(dx,dy)), then 5 lane-rolls collapse the dx shifts and 5 major-offset
-  adds collapse the dy shifts; bias, clamp.
-* Output blocks are written in the final [gh, th, gw, CW] layout so the
-  XLA epilogue is a reshape + junk-column drop, with no transpose.
+conv3's 5x5 stencil reads *shifted* c2 values, which a Triton program
+cannot take from registers, so the 25 shifted plane sums, the bias and
+the clamp run in XLA as one elementwise fusion (:func:`_conv3_sum`).
 
 Image-border semantics: the reference replicate-pads conv2's OUTPUT before
-conv3 (`libsrcnn.cpp:463-489`), which differs from running conv1/2 over a
-replicate-padded input ring.  The kernel reproduces this in place: boundary
-tiles overwrite the out-of-image c2 ring with the edge c2 row/column via
-masked selects (same fix as parallel/halo.py's second exchange, but free).
+conv3 (`libsrcnn.cpp:463-489`).  The kernel reproduces this by clamping
+each ring pixel's centre to the image before it gathers the taps, so the
+ring holds the edge pixel's c2 exactly.  ``edge_flags`` [top, bottom,
+left, right] gate the clamp per side: a band or shard whose border is not
+a true image edge keeps the real neighbour pixels its halo carries.
+
+Each tier's dots are spelled out here (:func:`_mm`), not left to a
+default precision: float32 is a dot as accurate as f32 (``EXACT_DOT``);
+bfloat16 splits the f32 activations into hi + lo bf16 halves, two bf16
+dots against bf16 weights with f32 accumulation; bfloat16_fast is one
+bf16 dot.  The per-pixel
+arithmetic does not depend on the tile grid or the plane shape, so bands
+and shards of one plane are bit-identical to the whole plane.
 """
 
 from __future__ import annotations
@@ -44,771 +42,197 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 HALO = 6          # 4 (conv1) + 2 (conv3) each side
-BORDER = 2        # output border recomputed with reference-exact semantics
-TW = 124          # valid output columns per tile
-CW = TW + 4       # c2 / GEMM column count (=128, lane-aligned)
-EW = 384          # window block lane width: Mosaic requires Element lane
-                  # offsets to be 128-aligned, so each block starts at
-                  # floor(j*TW/128)*128 and the kernel lane-rolls away the
-                  # residual shift (<128); live span = shift + 140 <= 267,
-                  # rounded up to a multiple of the 128-lane tile
+RING = 2          # conv3's reach into the conv2 plane
+TAPS3 = 25        # conv3 taps, k = 5*dy + dx
 
-#: (tw, cw, ew) geometries.  WIDE is the original: tw=124 keeps the
-#: junk-column count at 4 but residual block shifts reach 124, forcing a
-#: 384-lane window (3.1x input over-read).  NARROW trades ~3% more GEMM
-#: work (8 junk columns: tw=120 of cw=128) for shifts that are multiples
-#: of 8 (<=120), capping the live span at 120+8+128 = 256 exactly -- one
-#: less 128-lane tile per window, cutting the structural window
-#: over-fetch by a third (VERDICT r4 item 2; the round-5 answer to the
-#: EW=384 term).  cw stays 128: a cw=124 variant was tried first and hit
-#: a VMEM OOM at th=128 -- unaligned lane counts make Mosaic pad AND
-#: copy every intermediate, costing more VMEM than the window saves.
-#: Per-element results are BIT-IDENTICAL across geometries (the grid
-#: partitioning changes, the per-column arithmetic does not).
-WIDE = (124, 128, 384)
-NARROW = (120, 128, 256)
+#: (rows, cols) of conv2-plane pixels per program and warps per program
+TILE = (4, 32)
+NUM_WARPS = 4
+
+#: the kernel's tiers (the srcnn compute_dtype names it serves)
+TIERS = ("float32", "bfloat16", "bfloat16_fast")
+
+#: the f32 tier's dot on the card: six bf16 tensor-core passes over
+#: three-way bf16 splits of both operands, which keeps ~f32 accuracy.  On
+#: an H100 (400 W) at 2048^2 the kernel took 3.15 ms this way, 3.56 ms
+#: with TF32_TF32_F32_X3 and 16.7 ms with IEEE f32 FMAs (PERF.md, "H100")
+EXACT_DOT = lax.DotAlgorithmPreset.BF16_BF16_F32_X6
 
 
-DEFAULT_TH = 40   # largest tile height fitting VMEM (f32 GEMM buffers)
-BF16_TH = 48      # split-bf16x2 mode: HIGHEST's 3-pass GEMMs keep hi/lo
-                  # operand splits live and cap th at 40; the 2-pass split
-                  # mode fits th=48, measured fastest of {40, 48, 64, 80}
-                  # (benchmarks/bf16_mode_sweep.py)
-BF16X1_TH = 128   # bf16x1 + packed im2col: the i32 pair-word scratch is
-                  # half the f32 one, freeing VMEM for much taller tiles
-                  # (less window over-fetch); round-4 device-true sweep
-                  # th in {48..200}: 128/160/176 tie at 4.43-4.46 ms per
-                  # 2048^2 (940 MP/s) vs 5.21 ms at the old th=48 -- 128
-                  # divides the common frame heights and has the smallest
-                  # VMEM footprint of the tie
-INT8_TH = 80      # int8 kernel default: no hi/lo GEMM splits + int8 scratch
-                  # leave VMEM headroom for taller tiles; th=80 measured
-                  # fastest of {40, 80, 120} (benchmarks/int8_th_sweep.py)
+def interpret_mode() -> bool:
+    """The one place that decides how Pallas kernels run: interpreted on
+    the CPU backend, compiled on the GPU, and nowhere else -- a machine
+    with a GPU never interprets quietly."""
+    backend = jax.default_backend()
+    if backend == "cpu":
+        return True
+    if backend == "gpu":
+        return False
+    raise RuntimeError(f"the fused kernel runs on 'gpu' (or interpreted on "
+                       f"'cpu'), not on {backend!r}")
 
 
-def _round8(x: int) -> int:
-    return (x + 7) // 8 * 8
+def dot_precision(tier: str, interpret: bool):
+    """The ``precision`` each tier's dots pass.  bf16 operands with
+    HIGHEST are plain bf16 tensor-core dots with f32 accumulation; f32
+    operands take :data:`EXACT_DOT` on the card.  The CPU does not run
+    the multi-pass presets, so interpreted runs keep HIGHEST (plain f32)."""
+    if tier not in TIERS:
+        raise ValueError(f"kernel tier {tier!r} is not one of {TIERS}")
+    if tier == "float32" and not interpret:
+        return EXACT_DOT
+    return lax.Precision.HIGHEST
 
 
-def padded_geometry(h: int, w: int, th: int = DEFAULT_TH,
-                    geom: tuple = WIDE) -> tuple[int, int]:
-    """The [need_h, need_w] plane size the kernel reads for an [h, w]
-    output: every tile's full [rb, ew] Element window must be in-bounds.
-    Used by the pipeline to have the resize gather emit the fully padded
-    plane directly (``pad_mode="full"``)."""
-    tw, cw, ew = geom
-    gh, gw = -(-h // th), -(-w // tw)
-    rb = _round8(th + 2 * HALO)
-    return (gh - 1) * th + rb, (gw - 1) * tw + ew
+def _mm(x, w, tier: str, precision):
+    """``x [P, K] x w [K, N]`` in the tier's dot algorithm, f32 result."""
+    def dot(a, b):
+        return jnp.dot(a, b, precision=precision,
+                       preferred_element_type=jnp.float32)
 
-
-#: sentinel precision for the single-pass bf16 mode (see :func:`_dot`)
-BF16X1 = "bf16x1"
-
-#: benchmark-tool mode names -> kernel precision (the SRCNNConfig
-#: compute_dtype -> precision mapping lives in pipeline._single_pass)
-MODE_PRECISIONS = {
-    "exact": jax.lax.Precision.HIGHEST,
-    "split": jax.lax.Precision.DEFAULT,
-    "bf16x1": BF16X1,
-}
-
-
-def _dot(x, w, dims, precision):
-    """GEMM with the mode's precision strategy.
-
-    * HIGHEST: one dot, Mosaic's multi-pass exact-f32 algorithm (the only
-      exact option -- Mosaic rejects Precision.HIGH outright).
-    * ``BF16X1``: ONE native MXU pass -- activations bulk-cast
-      (round-to-nearest) to bf16, bf16 weights.  The im2col scratch stays
-      f32 (a bf16 scratch hits Mosaic's packed-sublane RMW penalty on the
-      81 tap stores -- the round-2 "bf16 operand storage" rejection
-      measured that, not the GEMM pass count).  Error adds the
-      activations' bf16 rounding (~2^-9 relative) on top of the weight
-      rounding.
-    * anything else ("throughput mode"): split-bf16x2 -- the f32
-      activations are split into hi+lo bf16 halves and run as TWO native
-      single-pass MXU GEMMs against bf16 weights, then summed in f32.
-      The activation representation is exact to ~2^-16 relative, so the
-      only error left is the weights' bf16 rounding.  Measured at 2048^2:
-      10.99 ms / maxdiff 2.5 vs 12.94 ms / maxdiff 3.6 for the naive
-      DEFAULT-precision dot -- faster AND more accurate.
-    """
-    if precision == jax.lax.Precision.HIGHEST:
-        return jax.lax.dot_general(x, w, dims,
-                                   preferred_element_type=jnp.float32,
-                                   precision=precision)
+    if tier == "float32":
+        return dot(x, w)
     hi = x.astype(jnp.bfloat16)
-    wb = w.astype(jnp.bfloat16)
-    a = jax.lax.dot_general(hi, wb, dims, preferred_element_type=jnp.float32)
-    if precision == BF16X1:
-        return a
-    lo = (x - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-    b = jax.lax.dot_general(lo, wb, dims, preferred_element_type=jnp.float32)
-    return a + b
-
-
-def _border_clamp(c2, flags_ref, i, j, ch, a_hi, s_hi, gh, gw, cw=CW):
-    """Reference border semantics (`libsrcnn.cpp:463-489`): conv3 reads
-    conv2's OUTPUT clamped to the valid image rectangle, so at true image
-    edges the c2 halo ring is REPLACED by the edge c2 value rather than
-    computed over the replicate-padded input ring.  Majors = rows
-    (global row = i*th + a - 2), sublanes = cols (global = j*TW + s - 2).
-    flags_ref [4] gates each edge: all-ones when this plane's borders are
-    true image edges; in the multi-chip halo path an interior shard sets
-    its flags to 0 so the ring keeps real neighbor-pixel values.
-    Elementwise, so it applies equally to f32 conv2 outputs and to the
-    int8 kernel's int32 accumulators (its folded epilogue is elementwise
-    per channel)."""
-    row_idx = jax.lax.broadcasted_iota(jnp.int32, (ch, 1, 1), 0)
-    col_idx = jax.lax.broadcasted_iota(jnp.int32, (1, cw, 1), 1)
-    c2 = jnp.where((flags_ref[0] == 1) & (i == 0) & (row_idx < 2),
-                   c2[2:3], c2)
-    c2 = jnp.where((flags_ref[1] == 1) & (i == gh - 1) & (row_idx > a_hi),
-                   c2[a_hi:a_hi + 1], c2)
-    c2 = jnp.where((flags_ref[2] == 1) & (j == 0) & (col_idx < 2),
-                   c2[:, 2:3, :], c2)
-    c2 = jnp.where((flags_ref[3] == 1) & (j == gw - 1) & (col_idx > s_hi),
-                   c2[:, s_hi:s_hi + 1, :], c2)
-    return c2
-
-
-def _conv3_roll_reduce(g, th: int, cw: int = CW):
-    """Collapse conv3's tap GEMM output G [ch, 25, cw] (taps ordered
-    k = 5*dx + dy): 5 lane rolls fold the dx shifts (valid columns never
-    wrap: x+dx <= tw-1+4 < cw, wrapped values land only in the 4 junk
-    columns), 5 major-offset adds fold the dy shifts.  Dtype-generic
-    (f32 kernel / int32 int8 kernel)."""
-    q25 = None                                    # [ch, 5, cw]: dy planes
-    for dx in range(5):
-        blk = g[:, 5 * dx:5 * dx + 5, :]
-        # left-rotate by dx == roll by cw-dx (pltpu.roll wants shift >= 0)
-        r = pltpu.roll(blk, cw - dx, axis=2) if dx else blk
-        q25 = r if q25 is None else q25 + r
-    acc = None                                    # [th, 1, CW]
-    for dy in range(5):
-        t = q25[dy:dy + th, dy:dy + 1, :]
-        acc = t if acc is None else acc + t
+    acc = dot(hi, w)
+    if tier == "bfloat16":
+        lo = (x - hi.astype(jnp.float32)).astype(jnp.bfloat16)
+        acc = acc + dot(lo, w)
     return acc
 
 
-def _kernel(w1_ref, b1_ref, w2_ref, b2_ref, w3_ref, b3_ref, flags_ref,
-            win_ref, out_ref, q_scr, *, th: int, a_hi: int, s_hi: int,
-            gh: int, gw: int, precision=None, pack: str | None = None,
-            geom: tuple = WIDE):
-    tw, cw, ew = geom
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    ch = th + 4
-    ext = win_ref[:]                              # [RB, 1, ew]
-    # undo the 128-alignment of this block's lane offset (see EW note):
-    # one dynamic lane rotate, then all tap slices below stay static
-    shift = j * tw - (j * tw) // 128 * 128
-    ext = pltpu.roll(ext, (ew - shift) % ew, axis=2)
-
-    if pack == "pair":
-        # --- packed im2col (bf16x1 mode): bf16 tap PAIRS in i32 words ---
-        # Halves the im2col scratch traffic without 16-bit stores: two
-        # bf16-rounded taps ride one full 32-bit word (no packed-sublane
-        # RMW -- the round-2/3 killers were sub-word stores, not the
-        # GEMM).  The window is bf16-rounded ONCE up front with the
-        # round-to-nearest-even integer identity (bitwise equal to
-        # XLA's f32->bf16 convert; verified), so the 81-fold tap fan-out
-        # replicates rounded BITS, not rounding work.  The final bitcast
-        # unpacks sublane 2k <- word k's LOW half, so the taps land in
-        # natural order and w1 only grows a zero row (k=81 pads the odd
-        # tap count).  NOTE: the 81 -> 82 contraction length may regroup
-        # the GEMM's f32 accumulation (<= 1 ulp vs the unpacked path);
-        # the kernel stays deterministic within a configuration, which is
-        # what the band/tile bit-identity invariants rest on.
-        bits = pltpu.bitcast(ext, jnp.int32)
-        b16 = ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16) & 0xFFFF
-        for k in range(0, 81, 2):
-            dy0, dx0 = divmod(k, 9)
-            lo = b16[dy0:dy0 + ch, :, dx0:dx0 + cw]
-            if k + 1 < 81:
-                dy1, dx1 = divmod(k + 1, 9)
-                word = lo | (b16[dy1:dy1 + ch, :, dx1:dx1 + cw] << 16)
-            else:
-                word = lo
-            q_scr[:, k // 2:k // 2 + 1, :] = word
-        q = pltpu.bitcast(q_scr[:], jnp.bfloat16)  # [ch, 82, cw]
-        h1 = jax.lax.dot_general(q, w1_ref[:], (((1,), (0,)), ((), ())),
-                                 preferred_element_type=jnp.float32)
-        h1 = jnp.maximum(h1 + b1_ref[:], 0.0)
-    elif pack == "hilo":
-        # --- packed im2col (split tier): each tap's hi/lo bf16 HALVES in
-        # one i32 word (hi = bf16(x) in the low half, lo = bf16(x - hi)
-        # in the high half).  Same scratch bytes as the f32 scratch, but
-        # the hi/lo decomposition runs ONCE on the [rb, EW] window
-        # instead of twice over the 81x-redundant scratch inside _dot
-        # (two bulk casts + a subtract on [ch, 81, CW] -- the split
-        # tier's hidden VPU term), and conv1 contracts the interleaved
-        # [ch, 162, CW] operand against row-duplicated weights in ONE
-        # MXU pass instead of two.  hi + lo still reconstructs the f32
-        # activation to ~2^-16 relative; only the f32 accumulation
-        # ORDER differs from the two-pass _dot (<= 1 ulp), and the
-        # kernel stays deterministic within a configuration.
-        bits = pltpu.bitcast(ext, jnp.int32)
-        hi16 = ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16) & 0xFFFF
-        lo_f = ext - pltpu.bitcast(hi16 << 16, jnp.float32)
-        lbits = pltpu.bitcast(lo_f, jnp.int32)
-        lo16 = ((lbits + 0x7FFF + ((lbits >> 16) & 1)) >> 16) & 0xFFFF
-        b32 = hi16 | (lo16 << 16)
-        for dy in range(9):
-            for dx in range(9):
-                k = dy * 9 + dx
-                q_scr[:, k:k + 1, :] = b32[dy:dy + ch, :, dx:dx + cw]
-        q = pltpu.bitcast(q_scr[:], jnp.bfloat16)  # [ch, 162, cw]
-        h1 = jax.lax.dot_general(q, w1_ref[:], (((1,), (0,)), ((), ())),
-                                 preferred_element_type=jnp.float32)
-        h1 = jnp.maximum(h1 + b1_ref[:], 0.0)
-    else:
-        # --- im2col: taps -> sublanes ------------------------------------
-        # The scratch is f32.  A bf16 scratch was attempted with
-        # word-aligned paired SUB-WORD stores (concat + 2-sublane store):
-        # Mosaic's compile helper crashes outright on that pattern at
-        # every tile height (round 3); the i32-packed full-word variant
-        # above is the formulation that sidesteps the bf16 store path
-        # entirely (round 4).
-        for dy in range(9):
-            for dx in range(9):
-                k = dy * 9 + dx
-                q_scr[:, k:k + 1, :] = ext[dy:dy + ch, :, dx:dx + cw]
-        q = q_scr[:]                              # [ch, 81, cw]
-
-        # --- conv1: batched [81,CW]^T x [81,64] MXU GEMMs ----------------
-        h1 = _dot(q, w1_ref[:], (((1,), (0,)), ((), ())),
-                  precision)                      # [ch, CW, 64] f32
-        h1 = jnp.maximum(h1 + b1_ref[:], 0.0)
-
-    # --- conv2: batched [CW,64] x [64,32] --------------------------------
-    h2 = _dot(h1, w2_ref[:], (((2,), (0,)), ((), ())),
-              precision)                          # [ch, CW, 32] f32
-    c2 = jnp.maximum(h2 + b2_ref[:], 0.0)
-
-    c2 = _border_clamp(c2, flags_ref, i, j, ch, a_hi, s_hi, gh, gw, cw)
-
-    # --- conv3 on the MXU: one batched GEMM contracts the 32 channels
-    # against ALL 25 tap weight vectors -> G [ch, 25, CW] with taps
-    # ordered k = 5*dx + dy; then collapse dx via lane rolls (valid
-    # columns never wrap: x+dx <= 123+4 < 128, wrapped values land only in
-    # the 4 junk columns) and dy via major-offset adds -----------------
-    c2t = jnp.swapaxes(c2, 1, 2)                  # [ch, 32, CW]
-    wb = jnp.broadcast_to(w3_ref[:], (ch, 25, 32))
-    if precision == jax.lax.Precision.HIGHEST:
-        g = jax.lax.dot_general(
-            wb, c2t,
-            dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-            precision=precision,
-        )                                         # [ch, 25, CW]
-    else:
-        # split path, operands swapped vs _dot: split the activations c2t
-        hi = c2t.astype(jnp.bfloat16)
-        wbb = wb.astype(jnp.bfloat16)
-        dims = (((2,), (1,)), ((0,), (0,)))
-        g = jax.lax.dot_general(wbb, hi, dims,
-                                preferred_element_type=jnp.float32)
-        if precision != BF16X1:
-            lo = (c2t - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-            g = g + jax.lax.dot_general(wbb, lo, dims,
-                                        preferred_element_type=jnp.float32)
-    acc = _conv3_roll_reduce(g, th, cw)
-    out_ref[0, :, 0] = jnp.clip(acc + b3_ref[0], 0.0, 255.0)
+def _clamp_centre(v, lo_edge, hi_edge, n: int):
+    """Centre coordinate of one conv2-plane pixel: the ring clamps onto
+    the image where that side is a true edge; rows past the plane (grid
+    padding) clamp to its last ring row so every tap stays in the halo."""
+    v = jnp.where((lo_edge == 1) & (v < 0), 0, v)
+    v = jnp.where((hi_edge == 1) & (v > n - 1), n - 1, v)
+    return jnp.minimum(v, n - 1 + RING)
 
 
-def _kernel_int8(w1_ref, s1_ref, t1_ref, w2_ref, s2_ref, t2_ref,
-                 w3_ref, d3_ref, b3_ref, flags_ref, win_ref,
-                 out_ref, q_scr, *, th: int, a_hi: int, s_hi: int,
-                 gh: int, gw: int):
-    """int8 MXU variant of :func:`_kernel` (v5e runs int8 matmuls at 2x
-    the bf16 rate): same im2col / conv3 roll-reduce structure, integer
-    contractions with the FOLDED inter-layer epilogue -- one f32
-    FMA + round + clip per activation (pack keys s = dequant*requant,
-    t = bias*requant; the clip's lower bound subsumes the ReLU, see
-    tools/calibrate_int8.py).  The XLA twin is
-    models/srcnn_int8.forward_y and matches this kernel within 1 u8 LSB
-    (integer contractions are identical; borderline requant rounding may
-    differ under the two compilations' FMA fusion)."""
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    ch = th + 4
-    ext = win_ref[:]                              # [RB, 1, EW] f32
-    shift = j * TW - (j * TW) // 128 * 128
-    # Mosaic's dynamic lane rotate is 32-bit-only, so the window rides in
-    # f32 and is rolled BEFORE quantization ...
-    ext = pltpu.roll(ext, (EW - shift) % EW, axis=2)
-    # ... then the whole tile window is quantized ONCE ([RB, EW] elements)
-    # and the im2col fan-out replicates int8 CODES, not quantization work
-    # (the v1 int8 kernel quantized the 81x-redundant scratch: ~2 ms/frame
-    # of pure VPU waste at 2048^2); the int8 scratch also quarters the
-    # im2col VMEM traffic
-    extq = jnp.clip(jnp.round(ext * (127.0 / 255.0)), 0, 127).astype(jnp.int8)
+def _kernel(flags_ref, y_ref, w1a_ref, w1b_ref, w1c_ref, b1_ref, w2_ref,
+            b2_ref, w3_ref, g_ref, *, h: int, w: int, tile: tuple,
+            tier: str, precision):
+    tr, tc = tile
+    npx = tr * tc
+    wx = w + 2 * HALO                   # row stride of the haloed plane
+    hc, wc = h + 2 * RING, w + 2 * RING  # conv2 plane
+    p = lax.broadcasted_iota(jnp.int32, (npx,), 0)
+    r = pl.program_id(0) * tr + p // tc
+    c = pl.program_id(1) * tc + p % tc
+    cy = _clamp_centre(r - RING, flags_ref[0], flags_ref[1], h)
+    cx = _clamp_centre(c - RING, flags_ref[2], flags_ref[3], w)
+    # haloed-plane offset of tap (0, 0) of each pixel's 9x9 window
+    base = (cy + RING) * wx + (cx + RING)
 
-    for dy in range(9):
-        for dx in range(9):
-            k = dy * 9 + dx
-            q_scr[:, k:k + 1, :] = extq[dy:dy + ch, :, dx:dx + CW]
-    xq = q_scr[:]                                 # [ch, 81, CW] int8
+    def taps(t0: int, n: int):
+        t = lax.broadcasted_iota(jnp.int32, (1, n), 1) + t0
+        return plgpu.load(y_ref.at[base[:, None] + (t // 9) * wx + t % 9])
 
-    i8dims1 = (((1,), (0,)), ((), ()))
-    acc1 = jax.lax.dot_general(xq, w1_ref[:], i8dims1,
-                               preferred_element_type=jnp.int32)
-    h1q = jnp.clip(jnp.round(acc1.astype(jnp.float32) * s1_ref[:]
-                             + t1_ref[:]), 0, 127).astype(jnp.int8)
+    x80 = plgpu.load(y_ref.at[base + 8 * wx + 8])
+    if tier == "bfloat16_fast":
+        x80 = x80.astype(jnp.bfloat16).astype(jnp.float32)
+    h1 = (_mm(taps(0, 64), w1a_ref[...], tier, precision)
+          + _mm(taps(64, 16), w1b_ref[...], tier, precision)
+          + x80[:, None] * w1c_ref[...][None, :])
+    h1 = jnp.maximum(h1 + b1_ref[...][None, :], 0.0)
+    c2 = _mm(h1, w2_ref[...], tier, precision)
+    c2 = jnp.maximum(c2 + b2_ref[...][None, :], 0.0)
+    g = _mm(c2, w3_ref[...], tier, precision)      # [P, 32], 25 live
 
-    acc2 = jax.lax.dot_general(h1q, w2_ref[:], (((2,), (0,)), ((), ())),
-                               preferred_element_type=jnp.int32)
-
-    # applied to the int32 accumulators: the folded epilogue is elementwise
-    # per channel, so replicating accumulators == replicating the
-    # reference's f32 conv2 outputs
-    acc2 = _border_clamp(acc2, flags_ref, i, j, ch, a_hi, s_hi, gh, gw)
-
-    c2q = jnp.clip(jnp.round(acc2.astype(jnp.float32) * s2_ref[:]
-                             + t2_ref[:]), 0, 127).astype(jnp.int8)
-    c2t = jnp.swapaxes(c2q, 1, 2)                 # [ch, 32, CW] int8
-    wb = jnp.broadcast_to(w3_ref[:], (ch, 25, 32))
-    g = jax.lax.dot_general(
-        wb, c2t, dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.int32)         # [ch, 25, CW] int32
-    # roll-reduce stays in int32 (exact) -- ONE f32 scale at the end,
-    # matching the XLA twin's full-int32 accumulate
-    acc = _conv3_roll_reduce(g, th)
-    out = acc.astype(jnp.float32) * d3_ref[0] + b3_ref[0]
-    out_ref[0, :, 0] = jnp.clip(out, 0.0, 255.0)
+    k = lax.broadcasted_iota(jnp.int32, (1, 32), 1)
+    live = (k < TAPS3) & ((r < hc) & (c < wc))[:, None]
+    offs = k * (hc * wc) + (r * wc + c)[:, None]
+    # masked lanes point past the end: never touched on the card, and
+    # dropped by the interpreter's scatter
+    offs = jnp.where(live, offs, TAPS3 * hc * wc)
+    plgpu.store(g_ref.at[offs], g, mask=live)
 
 
-def _plane_setup(y, edge_flags, th: int, pad_mode: str,
-                 full_shape: tuple | None, geom: tuple = WIDE):
-    """Shared launch geometry for both kernel variants: resolve the real
-    (h, w) from ``pad_mode`` (see :func:`_fused`), pad ``y`` out to the
-    [need_h, need_w] plane every tile's Element window reads from, and
-    compute the last-tile border-clamp thresholds in c2-local coordinates
-    (+2 ring offset)."""
-    tw, cw, ew = geom
-    if pad_mode == "full":
-        h, w = full_shape
-    elif pad_mode == "halo":
-        h, w = y.shape[0] - 2 * HALO, y.shape[1] - 2 * HALO
-    else:
-        h, w = y.shape
-    if edge_flags is None:
-        edge_flags = jnp.ones((4,), jnp.int32)
-    gh, gw = -(-h // th), -(-w // tw)
-    hp, wp = gh * th, gw * tw
-    rb = _round8(th + 2 * HALO)                   # window rows per block
-    # plane must cover the last tile's full [rb, ew] window
-    need_h = (gh - 1) * th + rb
-    need_w = (gw - 1) * tw + ew
-
-    if pad_mode == "full":
-        assert y.shape == (need_h, need_w), (y.shape, need_h, need_w)
-        yext = y
-    elif pad_mode == "halo":
-        # alignment/tile padding beyond the existing halo (junk region)
-        yext = jnp.pad(y, ((0, need_h - (h + 2 * HALO)),
-                           (0, need_w - (w + 2 * HALO))), mode="edge")
-    else:
-        ypad = jnp.pad(y, ((0, hp - h), (0, wp - w)), mode="edge")
-        yext = jnp.pad(ypad, ((HALO, need_h - hp - HALO),
-                              (HALO, need_w - wp - HALO)), mode="edge")
-    # [Hp, 1, Wp]: window rows ride the block's MAJOR dim; overlapping
-    # [rb, 1, EW] windows are sliced straight from this plane by the
-    # pl.Element block dims -- no pre-tiled copy in HBM.
-    yext = yext[:, None, :]
-
-    a_hi = (h - 1) - (gh - 1) * th + 2
-    s_hi = (w - 1) - (gw - 1) * tw + 2
-    return (h, w, gh, gw, hp, rb, yext, a_hi, s_hi,
-            jnp.asarray(edge_flags, jnp.int32))
+def _kernel_weights(params: dict, tier: str):
+    """The kernel's weight layout: conv1 split at tap 64 and 80, conv3's
+    taps as the 25 live of 32 columns.  The bf16 tiers get bf16 weights
+    (the f32 rank-1 tap sees the same bf16-rounded values)."""
+    wdt = jnp.float32 if tier == "float32" else jnp.bfloat16
+    w1 = params["w1"].reshape(81, 64).astype(wdt)
+    w3 = params["w3"].reshape(TAPS3, 32).T.astype(wdt)       # [32, 25]
+    w3 = jnp.pad(w3, ((0, 0), (0, 32 - TAPS3)))
+    return (w1[:64], w1[64:80], w1[80].astype(jnp.float32),
+            params["b1"].astype(jnp.float32),
+            params["w2"].reshape(64, 32).astype(wdt),
+            params["b2"].astype(jnp.float32), w3)
 
 
-def _launch(body, params, yext, flags, *, h, w, gh, gw, hp, rb, th,
-            scratch_dtype, interpret, scratch_taps: int = 81,
-            geom: tuple = WIDE):
-    """Shared pallas_call plumbing: grid/BlockSpecs (params in VMEM, edge
-    flags in SMEM, Element-granular input windows), the im2col scratch in
-    the variant's dtype (``scratch_taps`` sublanes: 81 tap rows / hi-lo
-    words, or 41 packed pair-words), and the junk-column-dropping reshape
-    epilogue
-    (blocks land in final row order, so no transpose)."""
-    tw, cw, ew = geom
-    out4 = pl.pallas_call(
-        body,
-        out_shape=jax.ShapeDtypeStruct((gh, th, gw, 1, cw), jnp.float32),
-        grid=(gh, gw),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * len(params) + [
-            pl.BlockSpec(memory_space=pltpu.SMEM),      # edge flags [4]
-            pl.BlockSpec((pl.Element(rb), pl.Element(1), pl.Element(ew)),
-                         lambda i, j: (i * th, 0, (j * tw) // 128 * 128),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, th, 1, 1, cw),
-                               lambda i, j: (i, 0, j, 0, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[pltpu.VMEM((th + 4, scratch_taps, cw), scratch_dtype)],
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * hp * gw * tw * (81 * 64 + 64 * 32 + 25 * 32),
-            bytes_accessed=hp * gw * tw * 8,
-            transcendentals=0,
-        ),
-    )(*params, flags, yext)
-
-    out = out4.reshape(hp, gw, cw)[:, :, :tw].reshape(hp, gw * tw)
-    return out[:h, :w]
+def _conv3_sum(g, b3, h: int, w: int):
+    """conv3 from its tap planes: out[y, x] = b3 + sum_k G[k, y+dy, x+dx],
+    clamped to [0, 255] (`libsrcnn.cpp:521-522`)."""
+    acc = None
+    for dy in range(5):
+        for dx in range(5):
+            t = g[5 * dy + dx, dy:dy + h, dx:dx + w]
+            acc = t if acc is None else acc + t
+    return jnp.clip(acc + b3.reshape(()).astype(jnp.float32), 0.0, 255.0)
 
 
-# ---------------------------------------------------------------------------
-# Row-band formulation (bf16x1 + pair pack): grid over row bands only
-# ---------------------------------------------------------------------------
-#
-# The per-column-tile grid's window over-fetch is structural: Element lane
-# offsets must be 128-aligned, so every tile fetches EW=384 lanes for 124
-# output columns (~3.1x input re-read; PERF.md round-2 "Floor statement").
-# This variant re-fights the round-2 row-band rejection on the current
-# toolchain (VERDICT r4 item 2): one kernel instance per ROW BAND reads the
-# band's window ONCE ([rb, 1, BW] at lane offset 0 -- trivially aligned)
-# and computes all gw column tiles from it, cutting window DMA from
-# gh*gw*rb*EW to gh*rb*BW (~3x less at 2048^2) and removing the dynamic
-# alignment roll.  Two inner-loop strategies, both preserved for A/B:
-#
-# * ``unroll``: a Python loop over j with STATIC unaligned lane slices at
-#   j*TW + dx (the per-tap misalignment cost is the same rotate+select the
-#   column-tile kernel already pays at dx = 1..8); program size grows gw-
-#   fold -- the round-2 compile-time killer, re-tested deliberately.
-# * ``fori``: a lax.fori_loop whose carry is the band's bf16-rounded code
-#   plane, left-rotated by TW each step so taps always sit at lanes
-#   [dx, dx+CW); constant program size, one [rb, BW] VPU roll per tile.
-
-
-def _pair_tile(b16, base, i, j, w1_ref, b1_ref, w2_ref, b2_ref, w3_ref,
-               b3_ref, flags_ref, q_scr, *, th, a_hi, s_hi, gh, gw):
-    """One column tile's pair-packed bf16x1 compute, taps read from the
-    band's rounded code plane at lane base ``base`` (static int).  Returns
-    the clipped [th, 1, CW] output tile."""
-    ch = th + 4
-    for k in range(0, 81, 2):
-        dy0, dx0 = divmod(k, 9)
-        lo = b16[dy0:dy0 + ch, :, base + dx0:base + dx0 + CW]
-        if k + 1 < 81:
-            dy1, dx1 = divmod(k + 1, 9)
-            word = lo | (b16[dy1:dy1 + ch, :, base + dx1:base + dx1 + CW]
-                         << 16)
-        else:
-            word = lo
-        q_scr[:, k // 2:k // 2 + 1, :] = word
-    q = pltpu.bitcast(q_scr[:], jnp.bfloat16)     # [ch, 82, CW]
-    h1 = jax.lax.dot_general(q, w1_ref[:], (((1,), (0,)), ((), ())),
-                             preferred_element_type=jnp.float32)
-    h1 = jnp.maximum(h1 + b1_ref[:], 0.0)
-
-    hi = h1.astype(jnp.bfloat16)
-    h2 = jax.lax.dot_general(hi, w2_ref[:].astype(jnp.bfloat16),
-                             (((2,), (0,)), ((), ())),
-                             preferred_element_type=jnp.float32)
-    c2 = jnp.maximum(h2 + b2_ref[:], 0.0)
-
-    c2 = _border_clamp(c2, flags_ref, i, j, ch, a_hi, s_hi, gh, gw)
-
-    c2t = jnp.swapaxes(c2, 1, 2)                  # [ch, 32, CW]
-    wb = jnp.broadcast_to(w3_ref[:], (ch, 25, 32))
-    g = jax.lax.dot_general(wb.astype(jnp.bfloat16),
-                            c2t.astype(jnp.bfloat16),
-                            (((2,), (1,)), ((0,), (0,))),
-                            preferred_element_type=jnp.float32)
-    acc = _conv3_roll_reduce(g, th)
-    return jnp.clip(acc + b3_ref[0], 0.0, 255.0)
-
-
-def _kernel_band(w1_ref, b1_ref, w2_ref, b2_ref, w3_ref, b3_ref, flags_ref,
-                 win_ref, out_ref, q_scr, *, th: int, a_hi: int, s_hi: int,
-                 gh: int, gw: int, unroll: bool):
-    i = pl.program_id(0)
-    bw = win_ref.shape[2]
-    # bf16-round the WHOLE band window once (RNE integer identity,
-    # bit-equal to the column-tile kernel's per-window rounding)
-    bits = pltpu.bitcast(win_ref[:], jnp.int32)
-    b16 = ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16) & 0xFFFF
-
-    kw = dict(th=th, a_hi=a_hi, s_hi=s_hi, gh=gh, gw=gw)
-    if unroll:
-        for j in range(gw):
-            res = _pair_tile(b16, j * TW, i, j, w1_ref, b1_ref, w2_ref,
-                             b2_ref, w3_ref, b3_ref, flags_ref, q_scr, **kw)
-            out_ref[0, :, j, 0, :] = res[:, 0, :]
-    else:
-        def step(j, b16v):
-            res = _pair_tile(b16v, 0, i, j, w1_ref, b1_ref, w2_ref,
-                             b2_ref, w3_ref, b3_ref, flags_ref, q_scr, **kw)
-            out_ref[0, :, j, 0, :] = res[:, 0, :]
-            # left-rotate by TW so the next tile's taps sit at lane 0
-            return pltpu.roll(b16v, bw - TW, axis=2)
-
-        jax.lax.fori_loop(0, gw, step, b16)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("th", "interpret", "pad_mode",
-                                    "full_shape", "band_impl"))
-def _fused_band(y, w1, b1, w2, b2, w3, b3, edge_flags=None, *, th: int,
-                interpret: bool, pad_mode: str = "none",
-                full_shape: tuple | None = None, band_impl: str = "unroll"):
-    """Row-band bf16x1 variant of :func:`_fused` (always pair-packed)."""
-    (h, w, gh, gw, hp, rb, yext, a_hi, s_hi,
-     flags) = _plane_setup(y, edge_flags, th, pad_mode, full_shape)
-    # the band block needs lanes [0, (gw-1)*TW + 8 + CW), 128-rounded;
-    # always <= the plane's need_w (which carries EW = 384 spare lanes)
-    bw = -(-((gw - 1) * TW + 8 + CW) // 128) * 128
-    assert bw <= yext.shape[2], (bw, yext.shape)
-    w1p = jnp.concatenate(
-        [w1, jnp.zeros((1, w1.shape[1]), w1.dtype)]).astype(jnp.bfloat16)
-    body = functools.partial(_kernel_band, th=th, a_hi=a_hi, s_hi=s_hi,
-                             gh=gh, gw=gw, unroll=band_impl == "unroll")
-    params = (w1p, b1, w2, b2, w3, b3)
-    out4 = pl.pallas_call(
-        body,
-        out_shape=jax.ShapeDtypeStruct((gh, th, gw, 1, CW), jnp.float32),
-        grid=(gh,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * len(params) + [
-            pl.BlockSpec(memory_space=pltpu.SMEM),      # edge flags [4]
-            pl.BlockSpec((pl.Element(rb), pl.Element(1), pl.Element(bw)),
-                         lambda i: (i * th, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, th, gw, 1, CW),
-                               lambda i: (i, 0, 0, 0, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[pltpu.VMEM((th + 4, 41, CW), jnp.int32)],
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * hp * gw * TW * (81 * 64 + 64 * 32 + 25 * 32),
-            bytes_accessed=hp * bw * 4 + hp * gw * CW * 4,
-            transcendentals=0,
-        ),
-    )(*params, flags, yext)
-    out = out4.reshape(hp, gw, CW)[:, :, :TW].reshape(hp, gw * TW)
-    return out[:h, :w]
-
-
-def forward_y_band(params: dict, y: jnp.ndarray, *, tile_h: int = 64,
-                   interpret: bool | None = None,
-                   full_pad_shape: tuple | None = None,
-                   band_impl: str = "unroll") -> jnp.ndarray:
-    """Row-band bf16x1 forward (A/B candidate vs :func:`forward_y` at
-    ``precision=BF16X1, pack_im2col=True``): numerically identical tap
-    rounding and GEMM passes, different launch geometry.  Kept as a
-    benchmark/validation entry until it proves faster on device."""
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    squeeze = y.ndim == 2
-    if squeeze:
-        y = y[None]
-    w1 = params["w1"].reshape(81, 64).astype(jnp.float32)
-    b1 = params["b1"].astype(jnp.float32)
-    w2 = params["w2"].reshape(64, 32).astype(jnp.float32)
-    b2 = params["b2"].astype(jnp.float32)
-    w3 = params["w3"][:, :, :, 0].transpose(1, 0, 2).reshape(25, 32)
-    w3 = w3.astype(jnp.float32)
-    b3 = params["b3"].reshape(1).astype(jnp.float32)
-    pad_mode = "none" if full_pad_shape is None else "full"
-    outs = []
-    for k in range(y.shape[0]):
-        outs.append(_fused_band(y[k].astype(jnp.float32), w1, b1, w2, b2,
-                                w3, b3, th=tile_h, interpret=interpret,
-                                pad_mode=pad_mode, full_shape=full_pad_shape,
-                                band_impl=band_impl))
-    out = jnp.stack(outs)
-    return out[0] if squeeze else out
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("th", "interpret", "pad_mode",
-                                    "full_shape"))
-def _fused_int8(y, qp: dict, edge_flags=None, *, th: int, interpret: bool,
-                pad_mode: str = "none", full_shape: tuple | None = None):
-    """int8 twin of :func:`_fused`: same geometry/BlockSpec scheme, the
-    quantized parameter pack instead of f32 weights."""
-    (h, w, gh, gw, hp, rb, yext, a_hi, s_hi,
-     flags) = _plane_setup(y, edge_flags, th, pad_mode, full_shape)
-    body = functools.partial(_kernel_int8, th=th, a_hi=a_hi, s_hi=s_hi,
-                             gh=gh, gw=gw)
-    params = (qp["w1q"], qp["s1"], qp["t1"], qp["w2q"], qp["s2"], qp["t2"],
-              qp["w3q"], qp["d3"], qp["b3"])
-    return _launch(body, params, yext, flags, h=h, w=w, gh=gh, gw=gw,
-                   hp=hp, rb=rb, th=th, scratch_dtype=jnp.int8,
-                   interpret=interpret)
-
-
-def forward_y_int8(qparams: dict, y: jnp.ndarray, *,
-                   tile_h: int | None = None, interpret: bool | None = None,
-                   full_pad_shape: tuple | None = None) -> jnp.ndarray:
-    """Fused int8 forward (draft/throughput tier): like :func:`forward_y`
-    but with the quantized pack from models/srcnn_int8.load_params.
-    Within 1 u8 LSB of the XLA twin models/srcnn_int8.forward_y; quality
-    vs the exact f32 path is ~40 dB PSNR (PERF.md)."""
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    if tile_h is None:
-        tile_h = INT8_TH
-    squeeze = y.ndim == 2
-    if squeeze:
-        y = y[None]
-    pad_mode = "none" if full_pad_shape is None else "full"
-    outs = []
-    for k in range(y.shape[0]):
-        plane = y[k].astype(jnp.float32)
-        outs.append(_fused_int8(plane, qparams, th=tile_h,
-                                interpret=interpret, pad_mode=pad_mode,
-                                full_shape=full_pad_shape))
-    out = jnp.stack(outs)
-    return out[0] if squeeze else out
-
-
-#: auto-select the i32-packed bf16 im2col for the bf16x1 tier (validated
-#: on-chip; benchmarks/bf16_mode_sweep.py A/Bs it via pack_im2col)
-PACK_IM2COL_DEFAULT = True
-
-#: auto-select the NARROW (256-lane window) launch geometry for the packed
-#: bf16x1 tier -- bit-identical output, ~1/3 less window DMA (see the
-#: WIDE/NARROW note at the top); flipped on only after the on-chip A/B
-#: (benchmarks/trace_kernel.py --mode bf16x1nw) shows the win
-NARROW_EW_DEFAULT = False
-
-#: auto-select the hi/lo-packed im2col for the split tier -- OFF: the
-#: sweep's `splitpk` mode measured it ~9% slower device-true at th=48/80
-#: (PERF.md round-4 "Split-tier hi/lo pack"); opt in per call via
-#: forward_y(pack_im2col=True, precision=DEFAULT)
-PACK_IM2COL_SPLIT_DEFAULT = False
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("th", "interpret", "precision",
-                                    "pad_mode", "full_shape", "pack_im2col",
-                                    "geom"))
-def _fused(y, w1, b1, w2, b2, w3, b3, edge_flags=None, *, th: int,
-           interpret: bool, precision=None, pad_mode: str = "none",
-           full_shape: tuple | None = None,
-           pack_im2col: bool | None = None, geom: tuple = WIDE):
-    """Run the fused kernel on one plane.
+@functools.partial(jax.jit, static_argnames=("pad_mode", "tier",
+                                             "interpret", "tile",
+                                             "num_warps"))
+def _fused(y, params, edge_flags=None, *, pad_mode: str = "none",
+           tier: str = "float32", interpret: bool | None = None,
+           tile: tuple = TILE, num_warps: int = NUM_WARPS):
+    """Run the fused kernel on one plane; returns the clamped [h, w] conv3.
 
     ``pad_mode``:
-      * ``"none"``: ``y`` is the [h, w] plane; the 6 px replicate halo and
-        the tile-alignment junk are padded here (one extra plane copy).
+      * ``"none"``: ``y`` is the [h, w] plane; the 6-px replicate halo is
+        padded here and every side is a true edge.
       * ``"halo"``: ``y`` is [h+12, w+12] with the halo already present
-        (the multi-chip path supplies exchanged neighbor pixels);
-        ``edge_flags`` [4] then says which of its borders are true image
-        edges (top, bottom, left, right).  Alignment junk is padded here.
-      * ``"full"``: ``y`` is already the full [need_h, need_w] plane from
-        :func:`padded_geometry` (the pipeline's resize gather emits it
-        directly); NO padding pass runs at all.  ``full_shape`` gives the
-        real (h, w).
-    """
-    (h, w, gh, gw, hp, rb, yext, a_hi, s_hi,
-     flags) = _plane_setup(y, edge_flags, th, pad_mode, full_shape, geom)
-    if pack_im2col is None:
-        pack_im2col = ((PACK_IM2COL_DEFAULT and precision == BF16X1)
-                       or (PACK_IM2COL_SPLIT_DEFAULT
-                           and precision == jax.lax.Precision.DEFAULT))
-    if pack_im2col and precision == jax.lax.Precision.HIGHEST:
-        raise ValueError("pack_im2col packs bf16 taps; the exact tier "
-                         "needs the f32 scratch")
-    pack = None
-    if pack_im2col:
-        pack = "pair" if precision == BF16X1 else "hilo"
-    if pack == "pair":
-        # one zero row pads the odd tap count to 41 pair-words; the GEMM
-        # contracts 82 bf16 sublanes against these 82 rows
-        w1 = jnp.concatenate(
-            [w1, jnp.zeros((1, w1.shape[1]), w1.dtype)]).astype(jnp.bfloat16)
-    elif pack == "hilo":
-        # hi and lo halves of tap k land at sublanes 2k / 2k+1 and both
-        # multiply the same weight row -> duplicate rows to [162, 64]
-        w1 = jnp.repeat(w1.astype(jnp.bfloat16), 2, axis=0)
-    body = functools.partial(_kernel, th=th, a_hi=a_hi, s_hi=s_hi,
-                             gh=gh, gw=gw, precision=precision,
-                             pack=pack, geom=geom)
-    return _launch(body, (w1, b1, w2, b2, w3, b3), yext, flags, h=h, w=w,
-                   gh=gh, gw=gw, hp=hp, rb=rb, th=th,
-                   scratch_dtype=jnp.int32 if pack else jnp.float32,
-                   scratch_taps=41 if pack == "pair" else 81, geom=geom,
-                   interpret=interpret)
+        (a band's or shard's real neighbour pixels, or a replicate pad);
+        ``edge_flags`` [4] says which sides are true image edges (top,
+        bottom, left, right), all of them when omitted.
 
-
-def tile_h_for(precision) -> int:
-    """The mode's default tile height (the pipeline must use the same th
-    for :func:`padded_geometry` and :func:`forward_y`)."""
-    if precision == jax.lax.Precision.HIGHEST:
-        return DEFAULT_TH
-    if precision == BF16X1 and PACK_IM2COL_DEFAULT:
-        return BF16X1_TH
-    return BF16_TH
-
-
-def geom_for(precision, pack_im2col: bool | None = None) -> tuple:
-    """The mode's launch geometry: NARROW (256-lane windows) for the
-    packed bf16x1 tier when :data:`NARROW_EW_DEFAULT` is on, else WIDE.
-    The pipeline must use the same geometry for :func:`padded_geometry`
-    and :func:`forward_y`."""
-    pack = pack_im2col if pack_im2col is not None else PACK_IM2COL_DEFAULT
-    if NARROW_EW_DEFAULT and precision == BF16X1 and pack:
-        return NARROW
-    return WIDE
-
-
-def forward_y(params: dict, y: jnp.ndarray, *, tile_h: int | None = None,
-              interpret: bool | None = None,
-              precision=jax.lax.Precision.HIGHEST,
-              full_pad_shape: tuple | None = None,
-              pack_im2col: bool | None = None,
-              geom: tuple | None = None) -> jnp.ndarray:
-    """Drop-in fused replacement for :func:`libsrcnn_tpu.models.srcnn.forward_y`
-    (clamped inference path).  Accepts [H, W] or [N, H, W].
-
-    ``precision=HIGHEST`` (default) is the exact path; any other value
-    selects the split-bf16x2 throughput mode (see :func:`_dot`).
-
-    ``full_pad_shape=(h, w)`` declares that ``y`` is already the fully
-    padded [need_h, need_w] plane from :func:`padded_geometry` (halo +
-    alignment junk emitted by the resize gather) for a real [h, w]
-    output -- the kernel then runs zero padding passes.
+    ``interpret=None`` takes :func:`interpret_mode`.
     """
     if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    if tile_h is None:
-        # an explicit pack_im2col=False opts out of the packed default's
-        # taller tile too (the f32 scratch at BF16X1_TH would blow VMEM)
-        tile_h = (BF16_TH if pack_im2col is False and precision == BF16X1
-                  else tile_h_for(precision))
+        interpret = interpret_mode()
+    if pad_mode == "none":
+        y = jnp.pad(y, HALO, mode="edge")
+    elif pad_mode != "halo":
+        raise ValueError(f"pad_mode {pad_mode!r} is not 'none' or 'halo'")
+    h, w = y.shape[0] - 2 * HALO, y.shape[1] - 2 * HALO
+    if edge_flags is None:
+        edge_flags = jnp.ones((4,), jnp.int32)
+    hc, wc = h + 2 * RING, w + 2 * RING
+    if TAPS3 * hc * wc >= 2 ** 31:
+        raise ValueError(f"plane {h}x{w} too large for int32 tap offsets")
+    tr, tc = tile
+    precision = dot_precision(tier, interpret)
+    body = functools.partial(_kernel, h=h, w=w, tile=tile, tier=tier,
+                             precision=precision)
+    g = pl.pallas_call(
+        body,
+        out_shape=jax.ShapeDtypeStruct((TAPS3 * hc * wc,), jnp.float32),
+        grid=(-(-hc // tr), -(-wc // tc)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
+        interpret=interpret,
+        name="srcnn_fused_conv",
+    )(jnp.asarray(edge_flags, jnp.int32), y.astype(jnp.float32).reshape(-1),
+      *_kernel_weights(params, tier))
+    return _conv3_sum(g.reshape(TAPS3, hc, wc), params["b3"], h, w)
+
+
+def forward_y(params: dict, y: jnp.ndarray, *, tier: str = "float32",
+              interpret: bool | None = None) -> jnp.ndarray:
+    """Fused replacement for :func:`libsrcnn_tpu.models.srcnn.forward_y`
+    (clamped inference path).  Accepts [H, W] or [N, H, W]."""
     squeeze = y.ndim == 2
     if squeeze:
         y = y[None]
-
-    w1 = params["w1"].reshape(81, 64).astype(jnp.float32)
-    b1 = params["b1"].astype(jnp.float32)
-    w2 = params["w2"].reshape(64, 32).astype(jnp.float32)
-    b2 = params["b2"].astype(jnp.float32)
-    # [25, 32] tap-major weights, taps ordered k = 5*dx + dy to match the
-    # kernel's dx-grouped roll reduction
-    w3 = params["w3"][:, :, :, 0].transpose(1, 0, 2).reshape(25, 32)
-    w3 = w3.astype(jnp.float32)
-    b3 = params["b3"].reshape(1).astype(jnp.float32)
-
-    pad_mode = "none" if full_pad_shape is None else "full"
-    if geom is None:
-        geom = geom_for(precision, pack_im2col)
-    outs = []
-    for k in range(y.shape[0]):
-        plane = y[k].astype(jnp.float32)
-        outs.append(_fused(plane, w1, b1, w2, b2, w3, b3, th=tile_h,
-                           interpret=interpret, precision=precision,
-                           pad_mode=pad_mode, full_shape=full_pad_shape,
-                           pack_im2col=pack_im2col, geom=geom))
-    out = jnp.stack(outs)
+    out = jnp.stack([_fused(plane, params, tier=tier, interpret=interpret)
+                     for plane in y])
     return out[0] if squeeze else out

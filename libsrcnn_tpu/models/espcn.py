@@ -5,10 +5,10 @@ Network") as a third model family.
 Like FSRCNN it runs entirely at LOW resolution, but instead of a learned
 transposed convolution it ends with a sub-pixel convolution: the last
 layer emits scale^2 channels per LR pixel and a depth-to-space shuffle
-rearranges them into the HR plane.  On TPU the shuffle is a pure
+rearranges them into the HR plane.  The shuffle is a pure
 reshape/transpose, which XLA fuses into the final conv's epilogue --
 there is no scatter and no stride-dilated conv anywhere, making this the
-most MXU-friendly upscale head of the three families.
+simplest upscale head of the three families.
 
 Layers (paper notation): 5x5x(f1) tanh -> 3x3x(f2) tanh ->
 3x3x(scale^2) linear -> pixel shuffle.  Replicate SAME padding.  The
@@ -112,7 +112,7 @@ def pixel_shuffle(x: jnp.ndarray, r: int) -> jnp.ndarray:
     """[N, H, W, r*r] -> [N, H*r, W*r]; channel k = (dy, dx) sub-pixel.
 
     Pure reshape+transpose (depth-to-space): XLA lowers it to a single
-    copy fused with the producing conv -- the TPU-native analog of the
+    copy fused with the producing conv -- the dense analog of the
     paper's "periodic shuffling" scatter.
     """
     n, h, w, c = x.shape
@@ -140,10 +140,10 @@ def forward_lr(params: dict, lr_y: jnp.ndarray,
                precision=lax.Precision.HIGHEST, lane_pack: bool = False):
     """LR Y plane(s) [H, W] or [N, H, W] -> HR [scale*H, scale*W].
 
-    ``precision``: HIGHEST = exact multi-pass f32 (default); DEFAULT =
-    single-pass bf16 MXU throughput tier.  ``lane_pack=True`` = packed
-    convs at per-layer optimal phases (the r^2-channel head uses r^2 of
-    128 MXU lanes; see :mod:`libsrcnn_tpu.ops.packed_conv`)."""
+    ``precision``: HIGHEST = exact f32 (default); DEFAULT = the
+    backend's fast f32 convs (TF32 tensor cores on the H100), the
+    throughput tier.  ``lane_pack=True`` = packed convs at per-layer
+    phase counts (see :mod:`libsrcnn_tpu.ops.packed_conv`)."""
     squeeze = lr_y.ndim == 2
     if squeeze:
         lr_y = lr_y[None]

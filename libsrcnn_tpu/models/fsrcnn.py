@@ -154,7 +154,7 @@ def _subpixel_plan(k: int, r: int):
 
 def _deconv_subpixel(h, w, r: int, precision, lane_pack: bool = False):
     """[N,H,W,Cin] x [k,k,Cin,1] -> [N,H*r,W*r,1], equal to
-    ``lax.conv_transpose(h, w, (r,r), "SAME")`` computed the MXU-friendly
+    ``lax.conv_transpose(h, w, (r,r), "SAME")`` computed the dense
     way: one dense stride-1 conv emitting the r*r sub-pixel phases,
     then a depth-to-space reshuffle.  The plan derivation assumes every
     output phase sees at least one kernel tap (k >= r); a hypothetical
@@ -174,8 +174,8 @@ def _deconv_subpixel(h, w, r: int, precision, lane_pack: bool = False):
     w2 = jnp.zeros((L, L, cin, r * r), w.dtype)
     w2 = w2.at[sy, sx, :, c].set(w[wy, wx, :, 0])
     if lane_pack:
-        # r*r output channels use r*r of 128 MXU lanes (3% at x2) --
-        # the lane-packed formulation is this head's biggest lever.
+        # r*r output channels: the lane-packed formulation widens
+        # this head's output by packing columns into channels.
         from libsrcnn_tpu.ops import packed_conv
         p = packed_conv.best_phases(L, r * r)
         if p > 1:
@@ -213,14 +213,14 @@ def forward_lr(params: dict, lr_y: jnp.ndarray,
                precision=lax.Precision.HIGHEST, lane_pack: bool = False):
     """LR Y plane(s) [H, W] or [N, H, W] -> HR [scale*H, scale*W].
 
-    ``precision``: HIGHEST = exact multi-pass f32 (default); DEFAULT =
-    single-pass bf16 MXU throughput tier.
+    ``precision``: HIGHEST = exact f32 (default); DEFAULT = the
+    backend's fast f32 convs (TF32 tensor cores on the H100), the
+    throughput tier.
 
     ``lane_pack=True`` runs every spatial conv (and the sub-pixel
     deconv) through :mod:`libsrcnn_tpu.ops.packed_conv` at its
-    roofline-optimal phase count -- same f32 MACs, different reduction
-    order (the d=56/s=12/r^2-channel stack is badly MXU-lane-starved;
-    see that module)."""
+    phase count -- same f32 MACs, different reduction order (see that
+    module)."""
     squeeze = lr_y.ndim == 2
     if squeeze:
         lr_y = lr_y[None]
@@ -239,10 +239,9 @@ def forward_lr(params: dict, lr_y: jnp.ndarray,
     # learned upscale: transposed conv, stride = scale, SAME-style output.
     # Computed as its sub-pixel equivalent (stride-1 conv emitting scale^2
     # channels + depth-to-space): XLA lowers `lax.conv_transpose` through
-    # input dilation, which runs ~16x slower on the TPU conv engine than
-    # the dense reformulation (measured 1342 -> 85 ms end-to-end at
-    # 1024^2-in, PERF.md "FSRCNN deconv"); the two are the same
-    # per-pixel sums.
+    # input dilation, which the first target measured ~16x slower than
+    # the dense reformulation (ROADMAP D7 re-measures it on the GPU);
+    # the two are the same per-pixel sums.
     up = _deconv_subpixel(h, params["deconv_w"], spec.scale, precision,
                           lane_pack)
     out = (up + params["deconv_b"])[..., 0].astype(jnp.float32)

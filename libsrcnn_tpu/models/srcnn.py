@@ -1,9 +1,9 @@
-"""SRCNN 9-1-5 model (Dong et al., ECCV 2014) -- TPU-native forward pass.
+"""SRCNN 9-1-5 model (Dong et al., ECCV 2014) -- the XLA forward pass.
 
 The reference implements this as three hand-rolled C++ loops over planar
 float buffers (`libsrcnn.cpp:350-529`); here it is a pure function over a
-params pytree, lowered to the MXU via ``lax.conv_general_dilated`` (or the
-fused Pallas kernels in :mod:`libsrcnn_tpu.kernels` when enabled).
+params pytree, lowered through ``lax.conv_general_dilated`` (or the
+fused kernel in :mod:`libsrcnn_tpu.kernels` when enabled).
 
 Behavioral contract (golden path, SURVEY.md section 3.1):
 
@@ -11,7 +11,7 @@ Behavioral contract (golden path, SURVEY.md section 3.1):
 * conv2: 1x1, 64->32, bias, ReLU (`libsrcnn.cpp:424-447`).
 * conv3: 5x5, 32->1, replicate-pad 2, bias, clamp to [0, 255]
   (`libsrcnn.cpp:449-529`; the reference accumulates per-channel in double,
-  which f32 matches within PSNR tolerance -- TPU MXU has no fp64).
+  which f32 matches within 1 u8 LSB -- the device path has no fp64).
 
 Weights come from ``weights/srcnn_915.npz`` (extracted from the reference's
 `convdata.h` with the conv3 spatial transpose fixed, see
@@ -44,11 +44,11 @@ def load_params(dtype=jnp.float32) -> dict[str, jnp.ndarray]:
 
     ``dtype`` is the WEIGHT storage dtype (it drives the conv operand
     dtype on the XLA path).  Biases always stay f32: every compute tier
-    -- the fused kernel's split/bf16x1 modes and the XLA path alike --
+    -- the fused kernel's bf16 dots and the XLA path alike --
     accumulates in f32 and adds biases in f32, so rounding bias storage
-    would only add error without changing any MXU operand.  This also
+    would only add error without changing any dot operand.  This also
     keeps each bf16 tier's output independent of whether the caller
-    loaded f32 or bf16 params (the weights reach the MXU bf16-rounded
+    loaded f32 or bf16 params (the weights reach the dots bf16-rounded
     either way)."""
     return {k: jnp.asarray(v, jnp.float32 if k.startswith("b") else dtype)
             for k, v in _load_npz().items()}
@@ -69,9 +69,9 @@ def init_params(key: jax.Array, dtype=jnp.float32) -> dict[str, jnp.ndarray]:
 
 
 def _conv(x: jnp.ndarray, w: jnp.ndarray) -> jnp.ndarray:
-    # precision=HIGHEST: TPU MXU runs f32 convs at bf16 precision by default
-    # (~0.2% error, visible as +-2 u8 LSB); HIGHEST forces the multi-pass
-    # f32 algorithm so the output matches the reference's C++ f32 loops.
+    # precision=HIGHEST: without it an f32 conv on the H100 runs in TF32
+    # (10-bit mantissa, visible as several u8 LSB); HIGHEST keeps full f32
+    # so the output matches the reference's C++ f32 loops.
     return lax.conv_general_dilated(
         x, w, window_strides=(1, 1), padding="VALID",
         dimension_numbers=_DN, preferred_element_type=jnp.float32,

@@ -18,7 +18,7 @@ the reference replicate-pads conv2's OUTPUT before conv3
 generic per-layer rule is what the halo/tiling machinery generalizes
 over.  The pre-trained 9-1-5 weights load through :func:`from_pretrained`.
 The fused Pallas kernel is specialized to 9-1-5; this family runs the
-XLA path (lane-packable on TPU).
+XLA path (lane-packable on request).
 
 As the ``"srcnn955"`` model family (the shipped 9-5-5 head, trained by
 tools/train_srcnn955.py), it follows the HR-domain protocol: one

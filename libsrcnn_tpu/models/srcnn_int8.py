@@ -1,26 +1,19 @@
 """int8-quantized SRCNN 9-1-5 forward — the framework's draft/throughput
-tier beyond the two f32-accurate modes.
+tier beyond the float tiers.
 
-The TPU v5e MXU runs int8 matmuls at 2x the bf16 rate, so this tier
-trades bounded quantization error for throughput past the split-bf16x2
-mode (see PERF.md).  Scheme (tools/calibrate_int8.py): symmetric
+It trades bounded quantization error for fewer bytes per operand; on
+the H100 it runs as XLA int8 convs (no fused kernel), and whether it
+pays there is ROADMAP S8.  Scheme (tools/calibrate_int8.py): symmetric
 per-output-channel int8 weights, per-channel-calibrated activation
 requantization with each layer's activation scale folded into the next
 layer's weights; all accumulation in int32.  The inter-layer
 dequant/bias/ReLU/requant chain is FOLDED into one f32 FMA + round +
 clip per element (pack keys s = dequant*requant, t = bias*requant; the
-clip's lower bound subsumes the ReLU) -- the VPU epilogue, not the MXU,
-bounds the int8 kernel, so epilogue ops are minimized by construction.
+clip's lower bound subsumes the ReLU), so epilogue ops are minimized
+by construction.
 
 This module is the XLA implementation (``lax.conv_general_dilated`` on
-int8 operands).  It is used (a) as the ``use_pallas=False`` path and
-(b) as the test oracle for the fused Pallas int8 kernel
-(:func:`libsrcnn_tpu.kernels.fused_conv.forward_y_int8`): the integer
-contractions are identical, but the f32 dequant/requant epilogues may be
-FMA-fused differently by the two compilations, so a BORDERLINE requant
-can round to a neighboring code -- the contract is <=1 u8 LSB between the
-two after output quantization (tests/test_int8.py), the same bound as
-the framework's golden gate.
+int8 operands) and the only one: the int8 tier runs it on every path.
 
 There is no reference analog (the reference is f32-only); the exactness
 contract of the framework (<=1 u8 LSB vs `libsrcnn.cpp`) applies to the

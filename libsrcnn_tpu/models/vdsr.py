@@ -10,17 +10,16 @@ only the interpolation residual, and the identity path carries the
 image.  (The reference stops at 9-1-5 with baked-in weights,
 `libsrcnn.cpp:350-529`; a deep family is beyond-reference breadth.)
 
-TPU-shaped implementation details:
+Implementation details:
 
 * The interior layers all share one shape (3x3, ch->ch), so they are
   STACKED into a single [L, 3, 3, ch, ch] array and driven by
   ``lax.scan`` -- the conv is traced and compiled once regardless of
-  depth (compile time stays O(1) in L), and XLA pipelines the layer loop
-  on-chip.
+  depth (compile time stays O(1) in L).
 * The scan body is wrapped in ``jax.checkpoint``: activations for the L
   interior layers are rematerialized in the backward pass instead of
-  stored, so training memory is O(1) in depth -- the standard TPU
-  recipe for deep stacks (HBM is the bottleneck, FLOPs are cheap).
+  stored, so training memory is O(1) in depth -- the standard recipe
+  for deep stacks (device memory is the bottleneck, FLOPs are cheap).
 * Replicate SAME padding (edge semantics match the reference's conv
   border policy), f32 accumulation at HIGHEST precision.
 
@@ -120,15 +119,15 @@ def forward_hr(params: dict, y_hr: jnp.ndarray,
     """Interpolated HR Y plane(s) [H, W] or [N, H, W] -> refined, same
     shape.  ``y + residual`` with the residual net under scan+remat.
 
-    ``precision`` sets the MXU algorithm for every conv: HIGHEST (default)
-    is multi-pass exact f32; DEFAULT is single-pass bf16 multiplies with
-    f32 accumulation -- the throughput tier (quality delta measured in
+    ``precision`` sets the dot precision of every conv: HIGHEST (default)
+    is exact f32; DEFAULT is the backend's fast f32 conv (TF32 tensor
+    cores on the H100) -- the throughput tier (quality delta measured in
     EVAL.md; there is no u8 golden gate on this family).
 
     ``lane_pack`` runs the interior stack through
     :func:`libsrcnn_tpu.ops.packed_conv.conv_same`: True = the
-    roofline-optimal phase count (p=4 doubles the useful MXU rate at
-    ch=32), an int > 1 = that explicit count.  Same f32 MACs in a
+    module's default phase count (p=4 at ch=32), an int > 1 = that
+    explicit count.  Same f32 MACs in a
     different reduction order, so it is not used where bit-stability
     across configs matters."""
     squeeze = y_hr.ndim == 2
@@ -136,10 +135,8 @@ def forward_hr(params: dict, y_hr: jnp.ndarray,
         y_hr = y_hr[None]
     x = y_hr[..., None].astype(params["in_w"].dtype)
 
-    # Measured non-win, kept out (PERF.md "VDSR roofline"): storing the
-    # inter-layer activations in bf16 changes nothing on-chip -- the
-    # stack is MXU-LANE-bound (ch=32 of 128 output lanes), not
-    # HBM-bound, so the f32 carries stay for exact tier parity.
+    # The inter-layer activations stay f32 on every tier, for exact
+    # tier parity (bf16 carries are a bytes question, ROADMAP S3).
     h = jnp.maximum(_conv_same(x, params["in_w"], precision)
                     + params["in_b"], 0.0)
 
@@ -245,7 +242,7 @@ def make_loss_forward(spec: VDSRSpec, lane_pack: int = 1):
 
     ``lane_pack > 1`` trains through the packed formulation (autodiff
     flows through the weight expansion, so gradients land on the true
-    [3,3,ch,ch] parameters); same MACs, ~2x step time on TPU at ch=32."""
+    [3,3,ch,ch] parameters); same MACs in another reduction order."""
     def forward(params, interp_y, clamp=False):
         return forward_hr(params, interp_y, spec, clamp=clamp,
                           lane_pack=lane_pack)

@@ -1,4 +1,4 @@
-"""Color-space conversion ops (JAX, runs on TPU inside the jitted pipeline).
+"""Color-space conversion ops (JAX, runs on the device inside the jitted pipeline).
 
 Numerics replicate the reference exactly:
 

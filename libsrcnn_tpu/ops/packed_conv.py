@@ -1,13 +1,13 @@
-"""Lane-packed SAME convolution: fill the MXU's 128 output lanes for
-narrow-channel conv stacks.
+"""Lane-packed SAME convolution: widen the output-channel dimension of
+narrow-channel conv stacks by packing adjacent output columns into it.
 
-Why: on TPU, a conv's output-channel dimension maps to the MXU's 128
-output lanes, so a ``ch=32`` stack (VDSR) can never exceed 32/128 = 25%
-of peak, and a ``ch=12`` stack (FSRCNN's mapping layers) 9% -- the
-measured VDSR roofline (PERF.md) sits at 77% of that *structural*
-ceiling with nothing left for XLA to recover.  The reference has no
-analog (its convs are scalar loops, `libsrcnn.cpp:350-529`); this is a
-TPU-hardware-shaped transform.
+Why: a ``ch=32`` stack (VDSR) or a ``ch=12`` one (FSRCNN's mapping
+layers) gives a matrix unit a narrow output; packing ``p`` columns makes
+it ``p`` times wider at the cost of zero-filled MACs.  The transform was
+built for the first target's 128-wide matrix unit; on the GPU it is an
+explicit opt-in (``lane_pack=True``) until ROADMAP D3 measures it.  The
+reference has no analog (its convs are scalar loops,
+`libsrcnn.cpp:350-529`).
 
 How: pack ``p`` horizontally-adjacent output columns ("phases") into the
 lane dimension.  A SAME ``kh x kw`` conv producing columns
@@ -133,7 +133,7 @@ def conv_same(x: jnp.ndarray, w: jnp.ndarray,
 
 @functools.lru_cache(maxsize=None)
 def best_phases(kw: int, cout: int, lanes: int = 128) -> int:
-    """Phase count maximizing useful MXU rate ~ min(p*cout, lanes)*kw /
+    """Phase count maximizing the useful rate ~ min(p*cout, lanes)*kw /
     ((p+kw-1)*cout), i.e. lane fill divided by zero-fill overhead.
 
     Returns 1 when no packing helps (cout already >= lanes).

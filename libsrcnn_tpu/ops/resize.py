@@ -1,4 +1,4 @@
-"""Separable classical resize, TPU-native.
+"""Separable classical resize, on the device.
 
 Device-side replica of `FRAWResizeEngine::scale` (`frawscale.cpp:162-286`).
 The per-axis contribution tables are precomputed host-side in float64
@@ -87,7 +87,7 @@ def _resize_axis_padded(plane: jnp.ndarray, dst: int, filter_type: FilterType,
     replicate padding to ``out``.  The padding rows reuse the first/last
     output row's contribution-table entry, so they are bit-identical to
     ``jnp.pad(resized, mode="edge")`` -- without materializing a separate
-    padded copy in HBM (the fused kernel reads this plane directly)."""
+    padded copy (the fused kernel reads this plane directly)."""
     src = plane.shape[axis]
     pad_hi = out - pad_lo - dst
     if dst == src:
@@ -122,9 +122,9 @@ def resize_plane_padded(
 ) -> jnp.ndarray:
     """Resize to [dst_h, dst_w] and emit an [out_h, out_w] plane with the
     result at offset (pad, pad), replicate-padded everywhere else.  Feeds
-    the fused kernel's ``pad_mode="full"`` path: the halo AND the tile
-    alignment junk come straight out of the resize gather, so the kernel
-    needs no separate padding pass over HBM.  Same pass ordering as
+    the fused kernel's ``pad_mode="halo"`` call: the 6-px halo comes
+    straight out of the resize gather, so no separate padding pass runs
+    over the plane.  Same pass ordering as
     :func:`resize_plane`."""
     src_h, src_w = plane.shape
     if dst_w <= src_w:

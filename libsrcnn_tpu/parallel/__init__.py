@@ -1,8 +1,8 @@
-"""Multi-chip execution: device meshes, GSPMD sharding, explicit ICI halo
+"""Multi-device execution: device meshes, GSPMD sharding, explicit halo
 exchange.
 
 The reference's only parallelism is 15 OpenMP pragmas over pixels/filters
-(SURVEY.md section 2.9).  The TPU-native equivalents:
+(SURVEY.md section 2.9).  The JAX equivalents:
 
 * batch/data parallelism -- frames sharded over a ``data`` mesh axis
   (:mod:`.sharding`),

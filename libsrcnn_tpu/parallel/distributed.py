@@ -1,11 +1,10 @@
 """Multi-host initialization helpers.
 
 The reference has no distributed story whatsoever (SURVEY.md section 2.9).
-For multi-host TPU slices the framework follows standard single-controller
-JAX: each host calls :func:`initialize` once before any jax usage, then
-builds a GLOBAL mesh over all hosts' devices; in-slice collectives ride
-ICI, cross-slice traffic rides DCN -- all inserted by XLA from the
-shardings, no external comm library.
+For several hosts the framework follows standard single-controller JAX:
+each host calls :func:`initialize` once before any jax usage, then
+builds a GLOBAL mesh over all hosts' devices; XLA inserts the
+collectives from the shardings (NCCL on GPUs), no comm code of ours.
 """
 
 from __future__ import annotations
@@ -20,8 +19,8 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Wrapper over ``jax.distributed.initialize``; no-ops on single-host.
 
-    On TPU pods the arguments are auto-detected from the environment; pass
-    them explicitly for CPU/GPU multi-process testing.
+    Pass the arguments explicitly (coordinator ``host:port``, process
+    count and id), or set ``JAX_COORDINATOR_ADDRESS`` for JAX to read.
     """
     import os
 
@@ -29,8 +28,7 @@ def initialize(coordinator_address: str | None = None,
         return
     if num_processes is None and coordinator_address is None and not any(
             os.environ.get(k) for k in
-            ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
-             "TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS")):
+            ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS")):
         # nothing to auto-detect from: a plain single host.  Without this
         # check jax.distributed.initialize raises instead of no-opping.
         return
@@ -44,8 +42,9 @@ def initialize(coordinator_address: str | None = None,
 def global_mesh(data: int = 1, row: int | None = None, col: int = 1):
     """Build a global (data, row, col) mesh over ALL processes' devices.
 
-    Defaults shard the remaining factor over ``row`` (spatial halo exchange
-    stays between ICI neighbors under the default device order).
+    Defaults shard the remaining factor over ``row``: the cards of one
+    host reach each other at one rate, so the split follows the
+    algorithm.
     """
     n = jax.device_count()
     if row is None:

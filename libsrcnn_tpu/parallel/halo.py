@@ -1,14 +1,14 @@
-"""Explicit spatial tiling with ICI halo exchange (`shard_map` + `ppermute`).
+"""Explicit spatial tiling with halo exchange (`shard_map` + `ppermute`).
 
-The TPU-native analog of context/ring parallelism for images (SURVEY.md
-section 5): one large Y plane is sharded over the mesh's ``row``/``col``
-axes; each device holds a tile and exchanges fixed-width halos with its
-neighbors over ICI before each spatial conv.  Replicate padding is applied
-ONLY at true image edges (a boundary tile pads with its own edge, which IS
-the global image edge) -- interior tiles receive real neighbor pixels.
+The image analog of context/ring parallelism (SURVEY.md section 5): one
+large Y plane is sharded over the mesh's ``row``/``col`` axes; each device
+holds a tile and exchanges fixed-width halos with its neighbors before
+each spatial conv.  Replicate padding is applied ONLY at true image edges
+(a boundary tile pads with its own edge, which IS the global image edge)
+-- interior tiles receive real neighbor pixels.
 
 Two per-device bodies, both numerically identical to the single-device
-forward:
+forward at the same tier:
 
 * **XLA body** (`_tile_forward`): two exchanges -- 4 px of the resized Y
   plane before the 9x9 conv1 (`libsrcnn.cpp:362-392`), then 2 px of the
@@ -16,11 +16,10 @@ forward:
   exchange exists because the reference replicate-pads conv2's *output*,
   which at true image edges is NOT the same as running conv1/2 over a
   wider input ring.
-* **Pallas body** (`_tile_forward_pallas`, default on TPU): ONE 6 px
-  exchange, then the fused kernel; the kernel's edge-flag mechanism
-  applies the conv2-output clamp only on shards whose border is a true
-  image edge, so the single exchange stays exact AND halves the ICI
-  traffic (6 px of 1 plane vs 4 px of 1 + 2 px of 32 planes).
+* **Fused-kernel body** (`_tile_forward_pallas`): ONE 6 px exchange, then
+  the fused kernel; its edge flags apply the conv2-output clamp only on
+  shards whose border is a true image edge, so the single exchange stays
+  exact and moves 6 px of 1 plane instead of 4 px of 1 + 2 px of 32.
 """
 
 from __future__ import annotations
@@ -29,9 +28,8 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax import lax
+from jax import lax, shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 HALO1 = 4  # conv1 9x9
 HALO3 = 2  # conv3 5x5
@@ -88,14 +86,13 @@ def _tile_forward(params: dict, y: jnp.ndarray, row_axis: str, col_axis: str) ->
 
 
 def _tile_forward_pallas(params: dict, y: jnp.ndarray, row_axis: str,
-                         col_axis: str, tile_h: int, interpret: bool,
-                         precision=None) -> jnp.ndarray:
-    """Per-device body (fused Pallas kernel): ONE 6 px Y-plane exchange,
-    then the whole conv stack on-device.  The kernel's edge-flag mechanism
-    applies the reference's conv2-output clamp only where this shard's
-    border is a TRUE image edge; interior shard rings keep the real
-    neighbor pixels from the exchange, so the result is exact everywhere
-    with a single exchange instead of two."""
+                         col_axis: str, tier: str) -> jnp.ndarray:
+    """Per-device body (fused kernel): ONE 6 px Y-plane exchange, then
+    the whole conv stack on-device.  The kernel's edge flags apply the
+    reference's conv2-output clamp only where this shard's border is a
+    TRUE image edge; interior shard rings keep the real neighbor pixels
+    from the exchange, so the result is exact everywhere with a single
+    exchange instead of two."""
     from ..kernels import fused_conv
 
     ext = _exchange2d(y, HALO1 + HALO3, row_axis, col_axis)
@@ -106,59 +103,38 @@ def _tile_forward_pallas(params: dict, y: jnp.ndarray, row_axis: str,
     flags = jnp.stack([
         (ri == 0), (ri == rn - 1), (ci == 0), (ci == cn - 1),
     ]).astype(jnp.int32)
-
-    w1 = params["w1"].reshape(81, 64).astype(jnp.float32)
-    b1 = params["b1"].astype(jnp.float32)
-    w2 = params["w2"].reshape(64, 32).astype(jnp.float32)
-    b2 = params["b2"].astype(jnp.float32)
-    # [25, 32] tap-major, taps ordered k = 5*dx + dy (fused_conv layout)
-    w3 = params["w3"][:, :, :, 0].transpose(1, 0, 2).reshape(25, 32)
-    b3 = params["b3"].reshape(1).astype(jnp.float32)
-    if precision is None:
-        precision = jax.lax.Precision.HIGHEST
-    return fused_conv._fused(
-        ext, w1, b1, w2, b2, w3.astype(jnp.float32), b3, flags,
-        th=tile_h, interpret=interpret, pad_mode="halo",
-        precision=precision)
+    return fused_conv._fused(ext, params, flags, pad_mode="halo", tier=tier)
 
 
-@functools.partial(jax.jit, static_argnums=(2, 3, 4, 5))
-def _run(params, y, mesh: Mesh, use_pallas: bool, interpret: bool,
-         precision=None):
+@functools.partial(jax.jit, static_argnums=(2, 3, 4))
+def _run(params, y, mesh: Mesh, use_pallas: bool, tier: str = "float32"):
     spec = P("row", "col")
     if use_pallas:
-        from ..kernels import fused_conv
-
-        prec = (jax.lax.Precision.HIGHEST if precision is None
-                else precision)
-        tile_h = min(fused_conv.tile_h_for(prec),
-                     y.shape[0] // mesh.shape["row"])
         body = functools.partial(_tile_forward_pallas, row_axis="row",
-                                 col_axis="col", tile_h=tile_h,
-                                 interpret=interpret, precision=prec)
+                                 col_axis="col", tier=tier)
     else:
         body = functools.partial(_tile_forward, row_axis="row", col_axis="col")
-    # check_vma off for the pallas body: pallas_call outputs carry no
+    # check_vma off for the kernel body: pallas_call outputs carry no
     # varying-across-mesh annotation
     fn = shard_map(body, mesh=mesh, in_specs=(P(), spec), out_specs=spec,
-                   check_rep=not use_pallas)
+                   check_vma=not use_pallas)
     return fn(params, y)
 
 
 def forward_y_tiled(params: dict, y: jnp.ndarray, mesh: Mesh,
                     use_pallas: bool | None = None,
-                    precision=None) -> jnp.ndarray:
+                    compute_dtype: str = "float32") -> jnp.ndarray:
     """SRCNN forward on one [H, W] Y plane spatially sharded over
     ``mesh`` axes ("row", "col").  H and W must divide by the respective
     axis sizes; tiles must be at least HALO1+HALO3 pixels.
 
-    ``use_pallas=None`` auto-selects the fused per-device kernel on TPU.
-    ``precision`` selects the kernel's compute tier (default HIGHEST =
-    exact; ``Precision.DEFAULT`` = split-bf16x2; ``fused_conv.BF16X1`` =
-    single-pass) -- Pallas body only; per tier the partitioned result is
-    bit-identical to the same tier's single-device
-    :func:`libsrcnn_tpu.kernels.fused_conv.forward_y` (the per-pixel
-    reduction order does not depend on the tile grid).
+    ``use_pallas=None`` auto-selects the fused per-device kernel on the
+    GPU (:func:`libsrcnn_tpu.pipeline.resolve_pallas`).
+    ``compute_dtype`` is the srcnn tier: ``float32`` (exact, either
+    body), ``bfloat16`` or ``bfloat16_fast`` (fused-kernel body only).
+    Per tier the partitioned result is bit-identical to the same tier's
+    single-device :func:`libsrcnn_tpu.kernels.fused_conv.forward_y` (the
+    per-pixel arithmetic does not depend on the tile grid).
     """
     from ..pipeline import resolve_pallas
 
@@ -169,12 +145,10 @@ def forward_y_tiled(params: dict, y: jnp.ndarray, mesh: Mesh,
         raise ValueError(f"plane {h}x{w} not divisible by mesh {rows}x{cols}")
     if h // rows < HALO1 + HALO3 or w // cols < HALO1 + HALO3:
         raise ValueError(f"tile smaller than halo {HALO1 + HALO3}")
-    use_pallas = resolve_pallas(use_pallas)
-    if (precision is not None and precision != jax.lax.Precision.HIGHEST
-            and not use_pallas):
+    use_pallas = resolve_pallas(use_pallas, compute_dtype)
+    if compute_dtype != "float32" and not use_pallas:
         raise ValueError(
-            "bf16 tiers on the halo path require the Pallas body "
-            "(the XLA body runs the exact HIGHEST convs only)")
-    interpret = jax.default_backend() == "cpu"
+            "bf16 tiers on the halo path require the fused kernel (Pallas) "
+            "body; the XLA body runs the exact HIGHEST convs only")
     y = jax.device_put(y, NamedSharding(mesh, P("row", "col")))
-    return _run(params, y, mesh, use_pallas, interpret, precision)
+    return _run(params, y, mesh, use_pallas, compute_dtype)

@@ -25,8 +25,9 @@ def make_mesh(axes: dict[str, int], devices=None) -> Mesh:
 
 def default_mesh(n_devices: int | None = None, devices=None) -> Mesh:
     """A sensible ``(data, row, col)`` mesh for n devices: spatial axes get
-    the largest power-of-two split (halo exchange rides ICI between
-    neighbors), the remainder goes to data parallelism."""
+    the largest power-of-two split, the remainder goes to data
+    parallelism.  The split follows the algorithm only: every card of a
+    host reaches every other at the same rate."""
     if devices is None:
         devices = jax.devices()
     if n_devices is not None:

@@ -2,7 +2,7 @@
 
 Where :mod:`.halo` spells out the halo exchange by hand, this module takes
 the idiomatic single-controller JAX route: annotate array shardings and let
-XLA's SPMD partitioner insert the ICI collectives -- including the halo
+XLA's SPMD partitioner insert the collectives -- including the halo
 exchanges for spatially-partitioned convolutions.
 
 * :func:`upscale_batch` -- data parallelism: a batch of same-sized frames
@@ -21,7 +21,7 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..config import SRCNNConfig
@@ -49,13 +49,16 @@ def _batch_fn(h, w, d, dst_h, dst_w, filter_type, use_pallas, mesh,
     vbody = jax.vmap(body, in_axes=(0, None))
     # shard_map, not GSPMD annotations: each device runs the full per-frame
     # pipeline on its local batch shard (zero communication), which keeps
-    # the fused Pallas kernel a plain per-device call -- the GSPMD
-    # partitioner cannot split a pallas custom call, so an annotation-based
-    # version could only honor use_pallas by replicating the batch.
+    # the fused kernel a plain per-device call -- the GSPMD partitioner
+    # cannot split a pallas custom call, so an annotation-based version
+    # could only honor use_pallas by replicating the batch.  (check_vma
+    # off for the kernel: pallas_call outputs carry no varying-across-mesh
+    # annotation.)
     smapped = shard_map(
         vbody, mesh=mesh,
         in_specs=(P("data", None, None, None), P()),
         out_specs=(P("data", None, None, None), P("data", None, None)),
+        check_vma=not use_pallas,
     )
     return jax.jit(smapped)
 
@@ -82,7 +85,8 @@ def upscale_batch(images, params, multiply: float, cfg: SRCNNConfig, mesh: Mesh)
     params, spec = pipeline.prepare_model_params(cfg, params, h, w,
                                                  dst_h, dst_w, multiply)
     fn = _batch_fn(h, w, d, dst_h, dst_w, int(cfg.filter),
-                   pipeline.resolve_pallas(cfg.use_pallas), mesh,
+                   pipeline.resolve_pallas(cfg.use_pallas,
+                                           cfg.compute_dtype), mesh,
                    cfg.model, spec, cfg.compute_dtype,
                    pipeline.resolve_lane_pack(cfg.lane_pack, cfg.model),
                    cfg.self_ensemble)
@@ -113,12 +117,12 @@ def _spatial_fn(h, w, d, dst_h, dst_w, filter_type, mesh,
 def upscale_spatial(image, params, multiply: float, cfg: SRCNNConfig, mesh: Mesh):
     """Upscale one [H, W, D] u8 frame with H/W sharded over ``row``/``col``;
     XLA GSPMD partitions the resize matmuls and convs, inserting halo
-    collectives over ICI.
+    collectives between the devices.
 
     This path always runs the XLA convolutions: the GSPMD partitioner
     cannot split a pallas custom call, so ``cfg.use_pallas=True`` is
     rejected rather than silently ignored.  For an explicitly tiled
-    pipeline that runs the fused Pallas kernel per shard, use
+    pipeline that runs the fused kernel per shard, use
     :func:`libsrcnn_tpu.parallel.tiled.upscale_tiled` (see PARITY.md for
     the measured comparison).
 

@@ -1,8 +1,8 @@
 """Pipeline-stage parallelism: the SRCNN stack split across a ``stage``
-mesh axis, frames streaming through over ICI (GPipe-style schedule).
+mesh axis, frames streaming from device to device (GPipe-style schedule).
 
 This fills the last row of SURVEY.md §2's parallelism table ("Optional
-stage pipelining (resize -> conv1 -> conv2 -> conv3) across chips for
+stage pipelining (resize -> conv1 -> conv2 -> conv3) across devices for
 streaming video").  The reference has no analog at all -- its stages are
 sequential CPU loops over one image (`libsrcnn.cpp:628-923`); here each
 device owns a contiguous group of stages and a clip of N frames flows
@@ -10,7 +10,7 @@ through the chain in ``N + S - 1`` systolic steps:
 
 * step ``t``: device ``s`` works on frame ``t - s`` (when in range), then
   hands its activation to device ``s + 1`` via ``lax.ppermute`` -- the
-  only inter-device traffic, one [C, H', W'] buffer per step over ICI.
+  only inter-device traffic, one [C, H', W'] buffer per step.
 * the whole schedule is a single ``lax.scan`` inside one ``shard_map``;
   per-device stage dispatch is a ``lax.switch`` on ``axis_index`` (SPMD:
   one program, device-varying branch).
@@ -24,17 +24,17 @@ the final merge.  C = 64 + d - 1.
 The per-stage math reuses the exact single-device ops (same
 ``precision=HIGHEST`` convs, same resize gather, same color converters),
 so the pipelined output is bit-identical to :func:`libsrcnn_tpu.upscale`
--- asserted by tests/test_stages.py.  The fused Pallas kernel is a single
+-- asserted by tests/test_stages.py.  The fused kernel is a single
 device op by design and cannot be split across stage boundaries; this
 path always uses the XLA convs (``use_pallas`` is ignored, like the GSPMD
 spatial path -- see PARITY.md).
 
-When to use it: steady-frame streaming where per-chip memory, not
-throughput, is the binding constraint (each chip holds only its stage's
+When to use it: steady-frame streaming where per-device memory, not
+throughput, is the binding constraint (each device holds only its stage's
 weights and one activation buffer).  For throughput, batched data
-parallelism (`sharding.upscale_batch`) keeps the MXU busier -- the
-pipeline has an ``S - 1`` bubble and ships whole activation planes over
-ICI every step.
+parallelism (`sharding.upscale_batch`) keeps every device busier -- the
+pipeline has an ``S - 1`` bubble and ships whole activation planes
+between devices every step.
 """
 
 from __future__ import annotations
@@ -43,9 +43,8 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax import lax
+from jax import lax, shard_map
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from ..config import FilterType, SRCNNConfig, chroma_filter
 from ..models import srcnn
@@ -342,7 +341,7 @@ def _pipelined_fn(n, h, w, d, dst_h, dst_w, filter_type, mesh, axis,
         run, mesh=mesh,
         in_specs=(P(), P()),
         out_specs=spec_state,
-        check_rep=False,
+        check_vma=False,
     )
 
     @jax.jit

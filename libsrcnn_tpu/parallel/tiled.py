@@ -1,7 +1,7 @@
 """Gigapixel tiled pipeline: the FULL upscale (color -> resize -> SRCNN ->
-merge) spatially sharded over a device mesh with explicit ICI halo exchange.
+merge) spatially sharded over a device mesh with explicit halo exchange.
 
-This is the framework's answer to "frames too large for one chip"
+This is the framework's answer to "frames too large for one device"
 (BASELINE.json config: gigapixel single image tiled across hosts).  Unlike
 :mod:`.sharding`'s GSPMD path (XLA decides the collectives, XLA conv only),
 everything here is explicit `shard_map`:
@@ -11,10 +11,10 @@ everything here is explicit `shard_map`:
   rows/cols per pass and applies the GLOBAL contribution tables sliced
   per shard (so boundary renormalization semantics are exactly the
   reference's, `frawscale.cpp:52-108`);
-* the conv stack reuses the halo bodies (fused Pallas kernel with
-  edge-flag clamping on TPU, two-exchange XLA body otherwise).
+* the conv stack reuses the halo bodies (the fused kernel with edge-flag
+  clamping, or the two-exchange XLA body).
 
-Result is numerically identical to the single-chip pipeline.
+Result is numerically identical to the single-device pipeline.
 """
 
 from __future__ import annotations
@@ -25,9 +25,8 @@ import math
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax import lax
+from jax import lax, shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from ..config import FilterType, SRCNNConfig, chroma_filter
 from ..ops import color
@@ -69,10 +68,10 @@ def _resize_axis_sharded(plane, left_l, w_l, halo: int, axis: int,
 
 
 @functools.partial(jax.jit, static_argnames=(
-    "dst_h", "dst_w", "filter_type", "use_pallas", "interpret", "mesh",
+    "dst_h", "dst_w", "filter_type", "use_pallas", "mesh",
     "precision", "model", "spec", "model_halo"))
 def _run_tiled(img, params, row_tabs, col_tabs, *, dst_h, dst_w, filter_type,
-               use_pallas, interpret, mesh: Mesh, precision=None,
+               use_pallas, mesh: Mesh, precision=None,
                model: str = "srcnn", spec=None, model_halo: int = 0):
     h, w, d = img.shape
     rows, cols = mesh.shape["row"], mesh.shape["col"]
@@ -137,14 +136,8 @@ def _run_tiled(img, params, row_tabs, col_tabs, *, dst_h, dst_w, filter_type,
             y_sr = fwd(params, ext, flags, spec, halo=model_halo,
                        precision=prec)
         elif use_pallas:
-            from ..kernels import fused_conv
-
-            prec = (jax.lax.Precision.HIGHEST if precision is None
-                    else precision)
             y_sr = halo_mod._tile_forward_pallas(
-                params, y_r, "row", "col",
-                tile_h=min(fused_conv.tile_h_for(prec), y_r.shape[0]),
-                interpret=interpret, precision=prec)
+                params, y_r, "row", "col", tier=precision)
         else:
             y_sr = halo_mod._tile_forward(params, y_r, "row", "col")
 
@@ -160,7 +153,7 @@ def _run_tiled(img, params, row_tabs, col_tabs, *, dst_h, dst_w, filter_type,
                   P("row"), P("row"), P("row"), P("row"),
                   P("col"), P("col"), P("col"), P("col")),
         out_specs=(P("row", "col", None), P("row", "col")),
-        check_rep=False,
+        check_vma=False,
     )
     rt_y, wt_y, ct_y, cwt_y = row_tabs[0], row_tabs[1], col_tabs[0], col_tabs[1]
     rt_c, wt_c, ct_c, cwt_c = row_tabs[2], row_tabs[3], col_tabs[2], col_tabs[3]
@@ -175,13 +168,12 @@ def upscale_tiled(image, params, multiply: float, cfg: SRCNNConfig,
     Constraints: H, W and the output H', W' must divide by the respective
     mesh axis sizes, and per-shard tiles must exceed the halo widths.
     Returns (out_u8 [H', W', D], conv_u8 [H', W']) with values identical to
-    the single-chip pipeline AT THE SAME COMPUTE TIER: float32 (exact,
-    default), or -- Pallas body only -- the bfloat16 / bfloat16_fast
-    throughput tiers (the per-pixel reduction order does not depend on
-    the tile grid, so each tier stays bit-identical to its single-chip
-    twin).
+    the single-device pipeline AT THE SAME COMPUTE TIER: float32 (exact,
+    default), or -- fused-kernel body only -- the bfloat16 / bfloat16_fast
+    tiers (the per-pixel arithmetic does not depend on the tile grid, so
+    each tier stays bit-identical to its single-device twin).
 
-    Models: srcnn (fused Pallas / XLA per-device bodies, halo plan 4+2
+    Models: srcnn (fused-kernel / XLA per-device bodies, halo plan 4+2
     px with the conv2-ring quirk), the HR families (vdsr/srcnn955 --
     direct XLA convs, halo derived from the spec via
     ``<family>.halo_width``), and the LR families (fsrcnn/espcn --
@@ -216,22 +208,17 @@ def upscale_tiled(image, params, multiply: float, cfg: SRCNNConfig,
                          "lane_pack unset/False)")
     spec, model_halo = None, 0
     if cfg.model == "srcnn":
-        use_pallas = resolve_pallas(cfg.use_pallas)
-        if cfg.compute_dtype == "float32":
-            precision = None  # HIGHEST
-        elif cfg.compute_dtype in ("bfloat16", "bfloat16_fast") and use_pallas:
-            from ..kernels import fused_conv
-
-            precision = (jax.lax.Precision.DEFAULT
-                         if cfg.compute_dtype == "bfloat16"
-                         else fused_conv.BF16X1)
-        else:
+        use_pallas = resolve_pallas(cfg.use_pallas, cfg.compute_dtype)
+        if not (cfg.compute_dtype == "float32"
+                or (use_pallas and cfg.compute_dtype != "int8")):
             raise ValueError(
                 "the tiled path's srcnn conv tiers are float32 (exact, XLA "
-                "or Pallas body) and bfloat16/bfloat16_fast (Pallas body "
-                f"only) -- got compute_dtype={cfg.compute_dtype!r} with "
-                f"use_pallas={cfg.use_pallas!r}; use single-chip or "
+                "or fused-kernel body) and bfloat16/bfloat16_fast (fused "
+                f"kernel only) -- got compute_dtype={cfg.compute_dtype!r} "
+                f"with use_pallas={cfg.use_pallas!r}; use single-device or "
                 "upscale_batch for other tiers")
+        # the srcnn shard body takes the tier name; the XLA body is exact
+        precision = cfg.compute_dtype
     elif cfg.model in _pipeline.HR_FAMILIES:
         precision = _pipeline.family_precision(cfg.compute_dtype)
         use_pallas = False
@@ -287,8 +274,7 @@ def upscale_tiled(image, params, multiply: float, cfg: SRCNNConfig,
     return _run_tiled(
         image, params, row_tabs, col_tabs,
         dst_h=dst_h, dst_w=dst_w, filter_type=int(cfg.filter),
-        use_pallas=use_pallas,
-        interpret=jax.default_backend() == "cpu", mesh=mesh,
+        use_pallas=use_pallas, mesh=mesh,
         precision=precision, model=cfg.model, spec=spec,
         model_halo=model_halo)
 

@@ -3,9 +3,8 @@
 The reference's pipeline driver (`libsrcnn.cpp:628-923`) runs color split ->
 per-channel resize -> conv stack on Y -> merge as separate OpenMP'd CPU
 stages with heap round-trips.  Here the whole pass is ONE jitted XLA program:
-u8 image in HBM -> planar f32 -> band-resample -> SRCNN 9-1-5 -> u8 out, so
-every intermediate stays on-chip and XLA fuses the elementwise stages into
-the convs.  Shapes are static per (input size, scale, depth) -- compiled
+u8 image in device memory -> planar f32 -> band-resample -> SRCNN 9-1-5 ->
+u8 out, so XLA fuses the elementwise stages into the convs.  Shapes are static per (input size, scale, depth) -- compiled
 programs are cached.
 """
 
@@ -61,16 +60,16 @@ def validate_compute_dtype(cfg: "SRCNNConfig") -> None:
 
 
 def param_dtype(compute_dtype: str) -> str:
-    """Storage dtype for srcnn params.  ``bfloat16_fast`` is a GEMM-pass
+    """Storage dtype for srcnn params.  ``bfloat16_fast`` is a dot-pass
     policy, not a storage dtype: it shares bf16 weight storage with the
-    split tier (the fused kernel re-casts operands internally either way;
-    on the XLA fallback path both bf16 modes run bf16-operand convs)."""
+    ``bfloat16`` tier (the fused kernel casts its operands itself; on the
+    XLA path both bf16 tiers run the same bf16-operand convs)."""
     return "bfloat16" if compute_dtype == "bfloat16_fast" else compute_dtype
 
 
 def family_precision(compute_dtype: str):
-    """MXU dot algorithm for the learned model families (which have no u8
-    golden gate): exact multi-pass f32, or single-pass bf16 throughput."""
+    """Dot precision for the learned model families (which have no u8
+    golden gate): exact f32 (``HIGHEST``), or bf16 operands."""
     if compute_dtype == "float32":
         return jax.lax.Precision.HIGHEST
     if compute_dtype == "bfloat16":
@@ -164,53 +163,25 @@ def _single_pass(img_u8, params, *, dst_h, dst_w, filter_type, use_pallas,
         y_sr = mod.forward_hr(params, y_r, fsrcnn_spec,
                               precision=family_precision(compute_dtype),
                               lane_pack=bool(lane_pack))
-    elif compute_dtype == "int8" and use_pallas:
-        from .kernels import fused_conv
-
-        need_h, need_w = fused_conv.padded_geometry(dst_h, dst_w,
-                                                    th=fused_conv.INT8_TH)
-        y_r = resize.resize_plane_padded(planes[0], dst_h, dst_w, y_filter,
-                                         fused_conv.HALO, need_h, need_w)
-        y_sr = fused_conv.forward_y_int8(params, y_r,
-                                         full_pad_shape=(dst_h, dst_w))
     elif compute_dtype == "int8":
         from .models import srcnn_int8
 
         y_r = resize.resize_plane(planes[0], dst_h, dst_w, y_filter)
         y_sr = srcnn_int8.forward_y(params, y_r)
     elif use_pallas:
-        import jax
         from .kernels import fused_conv
 
-        # float32 forces the kernel's multi-pass exact-f32 GEMMs, matching
-        # the reference; bfloat16 selects the split-bf16x2 throughput mode
-        # (activations split hi/lo into two native MXU passes, bf16
-        # weights) -- measured both faster AND more accurate than naive
-        # single-pass bf16 matmuls; bfloat16_fast drops the lo-pass for
-        # ONE MXU pass per GEMM (see kernels/fused_conv._dot).
-        prec = {"float32": jax.lax.Precision.HIGHEST,
-                "bfloat16": jax.lax.Precision.DEFAULT,
-                "bfloat16_fast": fused_conv.BF16X1}.get(compute_dtype)
-        if prec is None:
-            raise ValueError(
-                f"srcnn compute_dtype={compute_dtype!r} is not a tier: "
-                f"use 'float32', 'bfloat16', 'bfloat16_fast' or 'int8'")
-        th = fused_conv.tile_h_for(prec)
-        # The resize gather emits the kernel's fully padded plane (6 px
-        # replicate halo + tile-alignment junk) directly, so the kernel
-        # runs zero padding passes over HBM (see resize_plane_padded).
-        # Geometry (WIDE/NARROW window) must match forward_y's resolution.
-        need_h, need_w = fused_conv.padded_geometry(
-            dst_h, dst_w, th=th, geom=fused_conv.geom_for(prec))
+        # the resize gather emits the kernel's 6-px replicate halo
+        # directly, so no separate padding pass runs over the plane
+        halo = fused_conv.HALO
         y_r = resize.resize_plane_padded(planes[0], dst_h, dst_w, y_filter,
-                                         fused_conv.HALO, need_h, need_w)
-        y_sr = fused_conv.forward_y(params, y_r, precision=prec,
-                                    tile_h=th,
-                                    full_pad_shape=(dst_h, dst_w))
+                                         halo, dst_h + 2 * halo,
+                                         dst_w + 2 * halo)
+        y_sr = fused_conv._fused(y_r, params, pad_mode="halo",
+                                 tier=compute_dtype)
     else:
         y_r = resize.resize_plane(planes[0], dst_h, dst_w, y_filter)
         y_sr = srcnn.forward_y(params, y_r)
-
 
     merged = jnp.stack([y_sr, *rest], axis=0)
     out_u8 = color.ycbcr_to_rgb(merged)
@@ -270,29 +241,29 @@ def run_intermediates(img_u8, params, multiply: float, cfg: SRCNNConfig):
     return out
 
 
-def resolve_pallas(use_pallas) -> bool:
-    """``None`` -> auto: the fused Pallas kernel on TPU (both faster and
-    more accurate than XLA's default bf16-precision convs), XLA elsewhere
-    (the Pallas interpreter on CPU is far slower than XLA's native conv)."""
-    if use_pallas is None:
-        import jax
+#: srcnn tiers the fused kernel serves when ``use_pallas`` is auto on the
+#: GPU: those where it beat the XLA conv stack end to end on the card
+#: (PERF.md, "H100").  int8 always runs its XLA twin.
+PALLAS_TIERS = ("float32", "bfloat16", "bfloat16_fast")
 
-        return jax.default_backend() == "tpu"
-    return bool(use_pallas)
+
+def resolve_pallas(use_pallas, compute_dtype: str = "float32") -> bool:
+    """``None`` -> auto: the fused kernel on the GPU for the tiers in
+    :data:`PALLAS_TIERS`, XLA elsewhere (the Pallas interpreter on the
+    CPU is far slower than XLA's native conv)."""
+    if use_pallas is None:
+        return (jax.default_backend() == "gpu"
+                and compute_dtype in PALLAS_TIERS)
+    return bool(use_pallas) and compute_dtype != "int8"
 
 
 def resolve_lane_pack(lane_pack, model: str) -> bool:
-    """``None`` -> auto: the MXU-lane-packed conv formulation on TPU for
-    the learned families (measured winner -- PERF.md "lane packing"),
-    the direct convs elsewhere (on CPU the packing is pure overhead).
-    The srcnn model ignores the flag: its conv stack is owned by the
-    fused kernel / golden-gated XLA path."""
+    """``None`` -> auto: the direct convs.  The lane-packed formulation
+    (:mod:`libsrcnn_tpu.ops.packed_conv`) runs only when asked for.  The
+    srcnn model ignores the flag: its conv stack is owned by the fused
+    kernel / golden-gated XLA path."""
     if model == "srcnn":
         return False
-    if lane_pack is None:
-        import jax
-
-        return jax.default_backend() == "tpu"
     return bool(lane_pack)
 
 
@@ -305,7 +276,8 @@ def run_pass(img_u8, params, multiply: float, cfg: SRCNNConfig):
     params, spec = prepare_model_params(cfg, params, h, w, dst_h, dst_w,
                                         multiply)
     fn = compiled_pass(h, w, d, dst_h, dst_w, int(cfg.filter),
-                       resolve_pallas(cfg.use_pallas), cfg.compute_dtype,
+                       resolve_pallas(cfg.use_pallas, cfg.compute_dtype),
+                       cfg.compute_dtype,
                        cfg.model, spec,
                        resolve_lane_pack(cfg.lane_pack, cfg.model))
     return fn(img_u8, params)

@@ -1,9 +1,9 @@
-"""Streaming / batched serving: video frames through the TPU pipeline.
+"""Streaming / batched serving: video frames through the device pipeline.
 
 The reference processes one still image per `ProcessSRCNN` call; this
-module is the production-serving layer the TPU framework adds:
+module is the production-serving layer this framework adds:
 
-* :class:`VideoUpscaler` -- double-buffered streaming loop: while the chip
+* :class:`VideoUpscaler` -- double-buffered streaming loop: while the device
   runs frame t, the host feeds frame t+1 (device dispatch is async), with
   optional native :class:`~libsrcnn_tpu.io.native.FrameRing` ingestion so a
   decoder thread never blocks on the device.
@@ -97,7 +97,8 @@ def _pass_geometry(frames, params, scale: float, config: SRCNNConfig):
     params, spec = pipeline.prepare_model_params(config, params, h, w,
                                                  dst_h, dst_w, scale)
     return params, (h, w, d, dst_h, dst_w, int(config.filter),
-                    pipeline.resolve_pallas(config.use_pallas),
+                    pipeline.resolve_pallas(config.use_pallas,
+                                            config.compute_dtype),
                     config.compute_dtype, config.model, spec,
                     pipeline.resolve_lane_pack(config.lane_pack,
                                                config.model))
@@ -180,7 +181,7 @@ class VideoUpscaler:
                        else pipeline.load_model_params(config, scale))
 
     #: transient device errors are retried this many times per frame before
-    #: propagating (tunneled/pre-empted backends can drop a dispatch; the
+    #: propagating (a pre-empted or reset device can drop a dispatch; the
     #: reference has no failure handling at all, SURVEY.md section 5)
     max_retries: int = 2
     #: first retry waits this long; each subsequent retry doubles it
@@ -209,7 +210,7 @@ class VideoUpscaler:
             except jax.errors.JaxRuntimeError as e:
                 # Deterministic failures (tracing/lowering problems surface
                 # as TypeError/ValueError, not JaxRuntimeError) are not
-                # retried; runtime errors from a tunneled/pre-empted device
+                # retried; runtime errors from a pre-empted or reset device
                 # are worth re-dispatching after a short backoff.
                 last_err = e
                 if attempt < self.max_retries:
@@ -223,7 +224,7 @@ class VideoUpscaler:
 
     def stream(self, frames: Iterable[np.ndarray]) -> Iterator[np.ndarray]:
         """Yield upscaled frames; keeps one frame in flight on the device
-        (dispatch is async, so the host prepares frame t+1 while the chip
+        (dispatch is async, so the host prepares frame t+1 while the device
         processes frame t)."""
         pending = None
         for frame in frames:

@@ -3,11 +3,15 @@
 Parallelism (all via GSPMD annotations on one jitted step):
 
 * **dp** -- batch sharded over the ``data`` mesh axis; XLA all-reduces
-  gradients over ICI.
+  gradients across the devices.
 * **sp** -- patch height sharded over ``row`` (spatial parallelism; XLA
   inserts conv halo exchange), useful when training on large tiles.
 * **tp** -- conv1/conv2 filter dimensions sharded over ``col`` (tensor
-  parallelism for the 64/32-channel dims).
+  parallelism for the 64/32-channel dims), on meshes whose ``row`` axis
+  is 1: XLA's SPMD partitioner computes a wrong forward pass when the
+  patch rows are split over ``row`` and the filters over ``col`` at once
+  (every row of the output is off; tests/test_train.py pins the case), so
+  on such a mesh the filters stay replicated over ``col``.
 
 The step is a pure (params, opt_state, batch) -> (params, opt_state, loss)
 function; checkpointing is plain npz of the params pytree
@@ -69,7 +73,8 @@ def train_step(params, opt_state, batch, optimizer, mesh: Mesh | None = None,
     loss, grads = jax.value_and_grad(loss_fn)(params, lr_y, hr_y, forward)
     updates, opt_state = optimizer.update(grads, opt_state, params)
     params = optax.apply_updates(params, updates)
-    if mesh is not None and forward is None:  # tp shardings are 9-1-5 shaped
+    if mesh is not None and forward is None and mesh.shape["row"] == 1:
+        # tp shardings are 9-1-5 shaped, and not combined with sp (above)
         psh = param_shardings(mesh)
         params = jax.lax.with_sharding_constraint(params, psh)
     return params, opt_state, loss

@@ -7,7 +7,7 @@ FLT_MIN, `debugtool.cpp:82-95`) so it effectively normalizes by max only --
 we implement the sane max-normalization it actually performs.
 
 Hooked from the pipeline via :func:`dump_planes` when
-``LIBSRCNN_TPU_DEBUG_DIR`` is set (the TPU analog of the reference's
+``LIBSRCNN_TPU_DEBUG_DIR`` is set (the analog of the reference's
 ``-DDEBUG`` dump sites, `libsrcnn.cpp:731-743,800-850`).
 """
 

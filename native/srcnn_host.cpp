@@ -1,6 +1,6 @@
 // Native host-side data path for libsrcnn_tpu.
 //
-// The reference is a C++ library end-to-end; in the TPU framework the
+// The reference is a C++ library end-to-end; in this framework the
 // device compute is JAX/XLA/Pallas, and THIS library covers the host hot
 // path around it -- the work that feeds and drains the chip when serving:
 //

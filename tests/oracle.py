@@ -2,7 +2,7 @@
 
 Loop-level reimplementation of libsrcnn's default (golden) path with the
 same precision choices as the C++ (float32 stages, double accumulation in
-the resampler and conv3), used to validate the TPU implementation in unit
+the resampler and conv3), used to validate the JAX implementation in unit
 tests.  Written from the behavioral spec in SURVEY.md sections 2-3; in
 addition, tests/goldens/ holds outputs generated by the actual reference
 binary (see tools/gen_goldens.py) as the end-to-end ground truth.

@@ -1,5 +1,7 @@
 """ESPCN model family: pixel shuffle, forward geometry, training, API."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -8,6 +10,15 @@ import jax.numpy as jnp
 
 from libsrcnn_tpu.models import espcn, fsrcnn
 from libsrcnn_tpu.train import Trainer
+
+
+GOLDENS = os.path.join(os.path.dirname(__file__), "goldens", "goldens.npz")
+
+
+def _butterfly_full():
+    """The reference's 256x256 butterfly picture, as committed in the
+    goldens archive."""
+    return np.load(GOLDENS)["in_butterfly_full"]
 
 
 @pytest.fixture(scope="module")
@@ -88,15 +99,12 @@ def test_shipped_weights_load():
 def test_shipped_espcn_beats_bicubic_on_heldout():
     """Quality gate: on the held-out butterfly image, the shipped ESPCN
     beats classical bicubic upscaling in Y-channel PSNR."""
-    from PIL import Image
-
     from libsrcnn_tpu.config import FilterType
     from libsrcnn_tpu.eval.metrics import psnr
     from libsrcnn_tpu.ops import color, resize
 
     params, spec = _shipped()
-    img = np.asarray(Image.open(
-        "/root/reference/Pictures/butterfly.png").convert("RGB"))
+    img = _butterfly_full()
     hr_y = np.asarray(color.rgb_to_ycbcr(jnp.asarray(img))[0])
     h, w = hr_y.shape
     lr_y = resize.resize_plane(jnp.asarray(hr_y), h // 2, w // 2,

@@ -1,5 +1,6 @@
 """eval runner, profiling utils, serving layer, distributed helpers."""
 
+import os
 import threading
 
 import numpy as np
@@ -14,16 +15,23 @@ from libsrcnn_tpu.utils.profiling import StageTimer, flops_estimate, sync
 from libsrcnn_tpu import upscale
 
 
+GOLDENS = os.path.join(os.path.dirname(__file__), "goldens", "goldens.npz")
+
+
+def _butterfly_full():
+    """The reference's 256x256 butterfly picture, as committed in the
+    goldens archive."""
+    return np.load(GOLDENS)["in_butterfly_full"]
+
+
 @pytest.fixture(scope="module")
 def butterfly():
-    img = np.asarray(Image.open(
-        "/root/reference/Pictures/butterfly.png").convert("RGB"))
+    img = _butterfly_full()
     return img[64:192, 64:192]  # 128x128 crop keeps tests fast
 
 
 def test_srcnn_beats_interp_on_butterfly():
-    img = np.asarray(Image.open(
-        "/root/reference/Pictures/butterfly.png").convert("RGB"))
+    img = _butterfly_full()
     r = evaluate_image(img, 2.0, FilterType.BICUBIC, name="butterfly")
     assert r.psnr_srcnn > r.psnr_interp, (r.psnr_srcnn, r.psnr_interp)
     assert r.ssim_srcnn > 0.8

@@ -68,12 +68,10 @@ def test_random_step_scale(seed):
 
 @pytest.mark.parametrize("seed", range(6))
 def test_fuzz_bf16_kernel_modes_geometry(seed):
-    """Random plane shapes through the fused kernel's bf16 modes (which
-    run at th=48, a different tile/halo geometry than the exact tier's
-    th=40) vs the XLA-exact output: shape-correct everywhere, deviation
-    inside each mode's documented envelope, and the tile grid must not
-    leak (junk columns / alignment rolls cancel at every width)."""
-    import jax
+    """Random plane shapes through the fused kernel's bf16 tiers vs the
+    XLA-exact output: shape-correct everywhere, deviation inside each
+    tier's documented envelope, and the tile grid must not leak (partial
+    tiles at every height and width)."""
     import jax.numpy as jnp
 
     from libsrcnn_tpu.models import srcnn
@@ -85,13 +83,12 @@ def test_fuzz_bf16_kernel_modes_geometry(seed):
     params = srcnn.load_params()
     y = rng.uniform(0, 255, (h, w)).astype(np.float32)
     ref = np.asarray(srcnn.forward_y(params, jnp.asarray(y)))
-    for prec, tol in ((jax.lax.Precision.DEFAULT, 4.0),
-                      (fused_conv.BF16X1, 8.0)):
+    for tier, tol in (("bfloat16", 4.0), ("bfloat16_fast", 8.0)):
         got = np.asarray(fused_conv.forward_y(params, jnp.asarray(y),
-                                              precision=prec))
+                                              tier=tier))
         assert got.shape == ref.shape
         d = np.abs(got - ref).max()
-        assert d <= tol, (seed, h, w, prec, d)
+        assert d <= tol, (seed, h, w, tier, d)
 
 
 @pytest.mark.parametrize("seed", range(8))

@@ -1,8 +1,8 @@
 """End-to-end regression vs the ACTUAL reference binary outputs.
 
 Goldens are generated by tools/gen_goldens.py running the reference library
-built from /root/reference (SURVEY.md section 4: the reference binary is the
-oracle).  Acceptance per BASELINE.json is SSIM >= 0.99; empirically the TPU
+built from a reference checkout (SURVEY.md section 4: the reference binary
+is the oracle).  Acceptance per BASELINE.json is SSIM >= 0.99; the
 pipeline is within 1 u8 LSB everywhere, so we assert much tighter.
 """
 
@@ -59,14 +59,21 @@ def test_against_reference_binary(goldens, idx):
 
 def test_shipped_butterfly_srcnn_png():
     """Our x2 bicubic SRCNN output matches the PNG the reference SHIPS
-    (`/root/reference/Pictures/butterfly_srcnn.png`) within 1 u8 LSB --
-    the de-facto regression golden the reference repo itself publishes."""
+    (`Pictures/butterfly_srcnn.png` of a reference checkout named by
+    LIBSRCNN_REFERENCE_DIR) within 1 u8 LSB -- the de-facto regression
+    golden the reference repo itself publishes."""
+    pics = os.path.join(os.environ.get("LIBSRCNN_REFERENCE_DIR", ""),
+                        "Pictures")
+    if not os.path.exists(os.path.join(pics, "butterfly_srcnn.png")):
+        pytest.skip("needs the reference's output PNGs, which are not in "
+                    "this repository: set LIBSRCNN_REFERENCE_DIR to a "
+                    "reference checkout")
     from PIL import Image
 
     img = np.asarray(Image.open(
-        "/root/reference/Pictures/butterfly.png").convert("RGB"))
+        os.path.join(pics, "butterfly.png")).convert("RGB"))
     ref = np.asarray(Image.open(
-        "/root/reference/Pictures/butterfly_srcnn.png").convert("RGB"))
+        os.path.join(pics, "butterfly_srcnn.png")).convert("RGB"))
     out, conv = upscale(img, 2.0, SRCNNConfig(filter=FilterType.BICUBIC),
                         return_conv_map=True)
     assert out.shape == ref.shape
@@ -75,6 +82,6 @@ def test_shipped_butterfly_srcnn_png():
     assert ssim(out, ref) >= 0.999
 
     refconv = np.asarray(Image.open(
-        "/root/reference/Pictures/butterfly_srcnn_convolution.png").convert("L"))
+        os.path.join(pics, "butterfly_srcnn_convolution.png")).convert("L"))
     dc = np.abs(conv.astype(int) - refconv.astype(int))
     assert dc.max() <= 1, f"conv map max u8 diff {dc.max()}"

@@ -1,13 +1,11 @@
-"""int8 draft tier: quantized pack integrity, XLA/Pallas-kernel agreement,
-quality vs the exact f32 path, and API/CLI wiring.
+"""int8 draft tier: quantized pack integrity, quality vs the exact f32
+path, and API/CLI wiring.
 
 The int8 tier has no reference analog (the reference is f32-only,
-`libsrcnn.cpp:350-529`); its contracts are (a) the fused Pallas int8
-kernel and the XLA int8 twin agree within 1 u8 LSB after output
-quantization (same bound as the golden gate -- the integer contractions
-are identical, only borderline f32 requant rounding may differ between
-the two compilations), and (b) measured quality vs the exact path stays
-high (PSNR threshold below; the shipped pack measures ~40 dB, PERF.md).
+`libsrcnn.cpp:350-529`); it runs the XLA int8 stack
+(models/srcnn_int8.forward_y) on every path, and its contract is that
+measured quality vs the exact path stays high (PSNR threshold below; the
+shipped pack measures ~40 dB).
 """
 
 import os
@@ -18,7 +16,6 @@ import pytest
 import jax.numpy as jnp
 
 from libsrcnn_tpu import SRCNNConfig, upscale
-from libsrcnn_tpu.kernels import fused_conv
 from libsrcnn_tpu.models import srcnn, srcnn_int8
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens", "goldens.npz")
@@ -66,35 +63,17 @@ def test_xla_int8_quality_vs_exact(qparams, butterfly):
     assert _psnr(q, exact) >= 38.0
 
 
-@pytest.mark.parametrize("shape", [(96, 124), (48, 48), (100, 140)])
-def test_fused_int8_matches_xla_twin(qparams, shape):
-    """Fused Pallas int8 kernel (interpret) vs XLA int8 twin: <=1 u8 LSB
-    after output quantization, on interior AND border pixels."""
-    y = np.random.default_rng(23).uniform(0, 255, shape).astype(np.float32)
-    ref = np.asarray(srcnn_int8.forward_y(qparams, jnp.asarray(y)))
-    got = np.asarray(fused_conv.forward_y_int8(qparams, jnp.asarray(y)))
-    d = np.abs(np.floor(got).astype(int) - np.floor(ref).astype(int))
-    assert d.max() <= 1, f"max u8 delta {d.max()} at {np.unravel_index(d.argmax(), d.shape)}"
-
-
-def test_fused_int8_batched(qparams):
-    ys = np.random.default_rng(24).uniform(0, 255, (2, 48, 62)).astype(np.float32)
-    got = np.asarray(fused_conv.forward_y_int8(qparams, jnp.asarray(ys)))
-    assert got.shape == (2, 48, 62)
-    one = np.asarray(fused_conv.forward_y_int8(qparams, jnp.asarray(ys[1])))
-    np.testing.assert_allclose(got[1], one, atol=1e-5)
-
-
 def test_pipeline_int8_both_paths(butterfly):
-    """End-to-end upscale with compute_dtype="int8": the XLA and Pallas
-    routes agree within 1 LSB, and both stay close to the exact output."""
+    """End-to-end upscale with compute_dtype="int8" runs the XLA int8
+    twin whatever use_pallas says (the fused kernel has no int8 tier), and
+    stays close to the exact output."""
     exact = upscale(butterfly, 2.0)
     a = upscale(butterfly, 2.0, SRCNNConfig(compute_dtype="int8",
                                             use_pallas=False))
     b = upscale(butterfly, 2.0, SRCNNConfig(compute_dtype="int8",
                                             use_pallas=True))
     assert a.dtype == np.uint8 and a.shape == exact.shape
-    assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+    np.testing.assert_array_equal(a, b)
     assert _psnr(a, exact) >= 38.0
 
 

@@ -95,7 +95,6 @@ def test_distributed_initialize_noops_on_plain_host(monkeypatch):
 
     from libsrcnn_tpu.parallel import distributed
 
-    for k in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
-              "TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS"):
+    for k in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS"):
         monkeypatch.delenv(k, raising=False)
     distributed.initialize()  # must not raise

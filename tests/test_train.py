@@ -1,5 +1,7 @@
 """Training subsystem: data synthesis, sharded step, checkpointing."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -10,6 +12,15 @@ from libsrcnn_tpu.models import srcnn
 from libsrcnn_tpu.parallel.mesh import make_mesh
 from libsrcnn_tpu.train import Trainer, make_patch_batch, synthesize_pair
 from libsrcnn_tpu.train.trainer import load_checkpoint, loss_fn, save_checkpoint
+
+
+GOLDENS = os.path.join(os.path.dirname(__file__), "goldens", "goldens.npz")
+
+
+def _butterfly_full():
+    """The reference's 256x256 butterfly picture, as committed in the
+    goldens archive."""
+    return np.load(GOLDENS)["in_butterfly_full"]
 
 
 @pytest.fixture(scope="module")
@@ -43,9 +54,7 @@ def test_make_patch_batch(images):
 def test_pretrained_loss_beats_identity(images):
     """The pre-trained SRCNN should reconstruct better than the classical
     interpolation alone on a real photo crop."""
-    from PIL import Image
-
-    hr = np.asarray(Image.open("/root/reference/Pictures/butterfly.png").convert("RGB"))
+    hr = _butterfly_full()
     lr_y, hr_y = synthesize_pair(hr, 2.0)
     params = srcnn.load_params()
     import jax.numpy as jnp
@@ -72,6 +81,22 @@ def test_sharded_training_matches_unsharded(images):
     np.testing.assert_allclose(l_plain, l_mesh, rtol=1e-4)
     np.testing.assert_allclose(np.asarray(tr_plain.params["w1"]),
                                np.asarray(tr_mesh.params["w1"]), atol=1e-5)
+
+
+@pytest.mark.parametrize("axes", [{"data": 1, "row": 2, "col": 2},
+                                  {"data": 1, "row": 1, "col": 4},
+                                  {"data": 4, "row": 1, "col": 1}])
+def test_sharded_step_matches_unsharded_large_patches(images, axes):
+    """Regression: with the patch rows split over ``row`` and the filters
+    over ``col`` at once, XLA's partitioner returned a loss ~70x too large
+    at every patch size; the trainer keeps the filters replicated there."""
+    batch = make_patch_batch(images, 16, patch=32, seed=0)
+    one = Trainer(params=srcnn.load_params(), learning_rate=1e-5).fit(
+        [batch, batch])
+    n = int(np.prod(list(axes.values())))
+    tr = Trainer(params=srcnn.load_params(), learning_rate=1e-5,
+                 mesh=make_mesh(axes, jax.devices()[:n]))
+    np.testing.assert_allclose(tr.fit([batch, batch]), one, rtol=1e-4)
 
 
 def test_checkpoint_roundtrip(tmp_path, images):

@@ -9,8 +9,19 @@ interior layers, residual identity path, replicate SAME borders) with
 random-init params, plus the shipped-weights path when vdsr.npz exists.
 """
 
+import os
+
 import numpy as np
 import pytest
+
+
+GOLDENS = os.path.join(os.path.dirname(__file__), "goldens", "goldens.npz")
+
+
+def _butterfly_full():
+    """The reference's 256x256 butterfly picture, as committed in the
+    goldens archive."""
+    return np.load(GOLDENS)["in_butterfly_full"]
 
 
 def _init(depth=5, ch=8):
@@ -123,12 +134,9 @@ def test_shipped_weights_beat_bicubic_heldout():
 
     if not os.path.exists(os.path.join(vdsr.WEIGHTS_DIR, "vdsr.npz")):
         pytest.skip("no shipped vdsr.npz yet -- run tools/train_vdsr.py")
-    from PIL import Image
-
     from libsrcnn_tpu.eval.runner import evaluate_image
 
-    img = np.asarray(Image.open(
-        "/root/reference/Pictures/butterfly.png").convert("RGB"))
+    img = _butterfly_full()
     r = evaluate_image(img, 2.0, name="butterfly", model="vdsr")
     assert r.psnr_srcnn > r.psnr_interp, (
         f"vdsr x2 {r.psnr_srcnn:.2f} dB <= bicubic {r.psnr_interp:.2f}")

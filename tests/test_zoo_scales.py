@@ -7,8 +7,19 @@ integer factor.  These tests pin the per-scale checkpoint contract
 (tools/train_fsrcnn.py --scale) and the eval runner's model switch.
 """
 
+import os
+
 import numpy as np
 import pytest
+
+
+GOLDENS = os.path.join(os.path.dirname(__file__), "goldens", "goldens.npz")
+
+
+def _butterfly_full():
+    """The reference's 256x256 butterfly picture, as committed in the
+    goldens archive."""
+    return np.load(GOLDENS)["in_butterfly_full"]
 
 
 def _load(family: str, scale: int):
@@ -43,13 +54,10 @@ def test_shipped_scale_loads_and_upscales(family, scale):
 def test_x3_beats_bicubic_on_heldout(family):
     """Quality gate at x3 on held-out butterfly, via the eval runner's
     standard protocol (downscale 1/3, super-resolve back)."""
-    from PIL import Image
-
     from libsrcnn_tpu.eval.runner import evaluate_image
 
     _load(family, 3)
-    img = np.asarray(Image.open(
-        "/root/reference/Pictures/butterfly.png").convert("RGB"))
+    img = _butterfly_full()
     r = evaluate_image(img, 3.0, name="butterfly", model=family)
     assert r.psnr_srcnn > r.psnr_interp, (
         f"{family} x3 {r.psnr_srcnn:.2f} dB <= bicubic {r.psnr_interp:.2f}")
@@ -70,7 +78,7 @@ def test_eval_runner_model_crop():
 @pytest.mark.parametrize("family", ["fsrcnn", "espcn", "vdsr"])
 def test_bfloat16_compute_tier(family):
     """compute_dtype="bfloat16" routes the family convs through
-    Precision.DEFAULT (single-pass bf16 MXU on TPU).  On the CPU backend
+    Precision.DEFAULT (TF32 convs on the H100).  On the CPU backend
     DEFAULT is still exact f32, so the output must match the f32 tier
     bit-for-bit -- this pins the plumbing; on-chip throughput/quality
     numbers are in PERF.md/EVAL.md."""

@@ -3,7 +3,7 @@
 
 The environment has no egress, so DIV2K/T91/Set5 cannot be fetched; the
 round-3 corpus was 3 photos (castle + scikit-learn's china/flower,
-~1.1 MP) and NEXT.md records the wider VDSR overfitting on it.  This
+~1.1 MP), and a wider VDSR overfit on it.  This
 module breaks that wall with what the container actually ships:
 
 * **Base photos** (3): `/root/reference/Pictures/castle.jpg` plus
@@ -19,7 +19,7 @@ module breaks that wall with what the container actually ships:
 scipy's data files are fetched via `pooch`, which is not installed
 (verified: ImportError), so the module import succeeds but every loader
 raises.  matplotlib's grace_hopper.jpg was measured a regression in
-round 3 (NEXT.md) and stays out.
+round 3 and stays out.
 
 butterfly.png remains HELD OUT everywhere (validation only).
 """
@@ -75,7 +75,7 @@ def base_images() -> list[np.ndarray]:
 
 #: textures reserved for EVALUATION (tools/gen_eval_report.py) and
 #: excluded from the training corpus forever -- quality claims need
-#: held-out measurements beyond the single butterfly (VERDICT r4 item 7).
+#: held-out measurements beyond the single butterfly.
 #: One high-detail and one mid-detail face, fixed by name.
 EVAL_HOLDOUT_TEXTURES = ("style_01/floor_light_m.png",
                          "style_02/wall_purple_d.png")
@@ -83,7 +83,7 @@ EVAL_HOLDOUT_TEXTURES = ("style_01/floor_light_m.png",
 
 def eval_holdout_images() -> list[tuple[str, np.ndarray]]:
     """(name, rgb u8) images NEVER seen by any trainer: matplotlib's
-    grace_hopper photo (kept out of training -- NEXT.md round-3) and the
+    grace_hopper photo (kept out of training since round 3) and the
     two reserved labmaze faces (center-cropped to 512^2 to keep eval
     runtime sane)."""
     from PIL import Image

@@ -5,7 +5,7 @@ The reference bakes 8,129 floats into ``/root/reference/src/convdata.h``
 (`convdata.h:19,32,677,686,979,982`): conv1 64x9x9 + bias[64], conv2 32x64
 (1x1) + bias[32], conv3 32x5x5 + scalar bias.  This tool parses the numeric
 literals (pure data, no code) and re-packs them as HWIO tensors in an ``.npz``
-so the TPU framework loads them at runtime instead of compile time.
+so the JAX framework loads them at runtime instead of compile time.
 
 Orientation notes (critical for bit-parity, see SURVEY.md section 2.6):
 

@@ -1,7 +1,7 @@
 // Minimal raw-buffer driver for the REFERENCE library (test oracle only).
 //
 // Links against the reference's public 2-function C API (libsrcnn.h:46-54)
-// to generate golden outputs for the TPU framework's regression tests --
+// to generate golden outputs for the JAX framework's regression tests --
 // this avoids the FLTK dependency of the reference's own test app.
 //
 // Usage:

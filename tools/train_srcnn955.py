@@ -15,7 +15,7 @@ Corpus and held-out protocol match the other trainers: the extended
 in-container corpus trains (tools/corpus.py), butterfly validates, the
 best-butterfly checkpoint ships.
 
-Run (TPU, ~10 min):
+Run (on the GPU or, slower, the CPU):
     python tools/train_srcnn955.py
 """
 
